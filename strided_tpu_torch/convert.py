@@ -1,0 +1,38 @@
+"""Carry a controller's state across from the JAX package.
+
+``linear_mpc_from_numpy`` builds this package's :class:`LinearMPC` from the
+arrays of a ``strided_tpu`` controller, given as numpy arrays and Python
+scalars, so both packages can be run on the very same controller.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .mpc.mpc import LinearMPC
+from .mpc.qp import CondensedQP
+
+__all__ = ["linear_mpc_from_numpy", "QP_ARRAYS", "MPC_ARRAYS"]
+
+QP_ARRAYS = ("A", "B", "Su", "Sx", "H", "M", "K_lqr", "solver")
+MPC_ARRAYS = ("x_eq", "u_eq", "u_min", "u_max")
+
+
+def linear_mpc_from_numpy(d: dict, device="cpu", dtype=torch.float32) -> LinearMPC:
+    """``d`` maps the names in ``QP_ARRAYS`` and ``MPC_ARRAYS`` to arrays,
+    and ``rho``, ``N``, ``n``, ``m``, ``use_chol``, ``admm_iters`` (and
+    optionally ``constrained``, default True) to scalars. Arrays are copied into
+    contiguous tensors of ``dtype`` on ``device``."""
+    to = lambda k: torch.tensor(np.asarray(d[k]), dtype=dtype, device=device)
+    qp = CondensedQP(
+        **{k: to(k) for k in QP_ARRAYS},
+        rho=float(d["rho"]), N=int(d["N"]), n=int(d["n"]), m=int(d["m"]),
+        use_chol=bool(d["use_chol"]),
+    )
+    return LinearMPC(
+        qp=qp,
+        **{k: to(k) for k in MPC_ARRAYS},
+        admm_iters=int(d["admm_iters"]),
+        constrained=bool(d.get("constrained", True)),
+    )

@@ -1,0 +1,54 @@
+"""Entry point: one closed-loop step of the scenario-batched quadrotor MPC.
+
+Counterpart of ``__graft_entry__.py``'s ``_make_controller`` and ``entry``:
+the same controller (Q, R, input bounds, ADMM-6 at rho=8) and the same step
+(condensed-QP ADMM solve -> first input -> RK4 plant step).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models import hover_input, hover_state, quadrotor
+from .mpc import make_hover_mpc
+
+__all__ = ["make_controller", "entry"]
+
+
+def make_controller(horizon: int, dt: float, device, dtype=torch.float32):
+    """(model, controller) for the 12-state quadrotor at hover."""
+    model = quadrotor()
+    Q = torch.diag(torch.tensor([10, 10, 10, 1, 1, 1, 5, 5, 5, 1, 1, 1],
+                                dtype=dtype, device=device))
+    R = torch.eye(4, dtype=dtype, device=device) * 0.1
+    ctrl = make_hover_mpc(
+        model,
+        hover_state(dtype, device),
+        hover_input(dtype=dtype, device=device),
+        Q,
+        R,
+        Q,
+        horizon=horizon,
+        dt=dt,
+        u_min=torch.tensor([-5.0, -0.5, -0.5, -0.5], dtype=dtype, device=device),
+        u_max=torch.tensor([10.0, 0.5, 0.5, 0.5], dtype=dtype, device=device),
+        admm_iters=6,
+        rho=8.0,
+    )
+    return model, ctrl
+
+
+def entry(device="cuda"):
+    """(fn, example_args): the scenario-batched MPC step at horizon 50."""
+    dt = 0.02
+    model, ctrl = make_controller(horizon=50, dt=dt, device=device)
+
+    def mpc_step(x):
+        u, _plan = ctrl.control(x)
+        return model.step(x, u, dt)
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-0.3, 0.3, (256, 12)), dtype=torch.float32,
+                        device=device)
+    return mpc_step, (x,)

@@ -1,0 +1,66 @@
+"""Quadrotor, 12-state: the flagship MPC model.
+
+Counterpart of ``strided_tpu/models/quadrotor.py``, same formulas. State
+``[p(3), v(3), eul(3)=phi,theta,psi, omega(3)]``, input
+``[thrust, tau_x, tau_y, tau_z]``; hover at ``u = [m*g, 0, 0, 0]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .base import Model
+
+__all__ = ["quadrotor", "hover_state", "hover_input"]
+
+
+def quadrotor(m=1.0, g=9.81, Jx=0.01, Jy=0.01, Jz=0.02) -> Model:
+    def dynamics(x, u):
+        # constants in the state's dtype and device, so f32 never promotes
+        J = torch.tensor([Jx, Jy, Jz], dtype=x.dtype, device=x.device)
+        grav = torch.tensor([0.0, 0.0, g], dtype=x.dtype, device=x.device)
+        v = x[..., 3:6]
+        phi, th, psi = x[..., 6], x[..., 7], x[..., 8]
+        w = x[..., 9:12]
+        # thrust kept as a (..., 1) slice: forward-mode AD promotes the
+        # tangent of a 0-dim tensor times a Python float to float64
+        thrust = u[..., 0:1]
+        tau = u[..., 1:4]
+
+        cphi, sphi = torch.cos(phi), torch.sin(phi)
+        cth, sth = torch.cos(th), torch.sin(th)
+        cpsi, spsi = torch.cos(psi), torch.sin(psi)
+
+        # Body-z axis in world frame (ZYX Euler):
+        zb = torch.stack(
+            [
+                cpsi * sth * cphi + spsi * sphi,
+                spsi * sth * cphi - cpsi * sphi,
+                cth * cphi,
+            ],
+            dim=-1,
+        )
+        acc = zb * (thrust / m) - grav
+
+        # Euler-angle kinematics (ZYX): eul_dot = E(eul) @ omega
+        tth = torch.tan(th)
+        p_, q_, r_ = w[..., 0], w[..., 1], w[..., 2]
+        phid = p_ + sphi * tth * q_ + cphi * tth * r_
+        thd = cphi * q_ - sphi * r_
+        psid = (sphi * q_ + cphi * r_) / torch.clamp(cth, min=1e-6)
+        euld = torch.stack([phid, thd, psid], dim=-1)
+
+        # Rigid-body rotation: J w_dot = tau - w x (J w)
+        wdot = (tau - torch.linalg.cross(w, J * w, dim=-1)) / J
+
+        return torch.cat([v, acc, euld, wdot], dim=-1)
+
+    return Model("quadrotor", 12, 4, dynamics)
+
+
+def hover_state(dtype=torch.float32, device=None):
+    return torch.zeros(12, dtype=dtype, device=device)
+
+
+def hover_input(m=1.0, g=9.81, dtype=torch.float32, device=None):
+    return torch.tensor([m * g, 0.0, 0.0, 0.0], dtype=dtype, device=device)
