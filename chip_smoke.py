@@ -17,7 +17,27 @@ Drives the port's main path, one closed-loop step of the scenario-batched
    ``strided_tpu_torch.entry.make_controller``; it must launch the kernel once
    per step, stay finite, shrink the state, and agree with the plain path;
 6. times (CUDA events after warm-up): the step, the kernel and its plain
-   version.
+   version;
+7. wide QP: ``qp_solve`` at horizon 150 (D = N*m = 600, above the kernel's
+   MAX_D = 512) with the kernel enabled must take the loop path and agree
+   with it, finite;
+8. the strided engine's main path at full size, through its entry points:
+   the flagship ``(v + v.T) / 2`` at 4000^2 and 8192^2 f32 (and ``3v + 2v.T``,
+   ``v - v.T``, bf16 at 4096^2, ragged 4001) through the tile-pair kernel;
+   ``ssum(v, axis=0)``, ``smax(transpose(v), axis=1)`` and an int32 sum
+   through the stream reduction; ``permutedims_into`` of an 8192^2
+   transpose and a 64x128x64x128 permute, the scrambled map
+   ``smap(x*3 + y, v.T, w)`` and (``kernel_reductions`` on) the int32
+   ``out = 3*old + sum over axis 0`` through the tile executor. Each checks
+   the dispatch record, and the result against the kernel's plain PyTorch
+   version on the same inputs (bit-exact, except f32 sums: 1e-6 * rows *
+   max|a|, the summation order differs); the launch counts are read for
+   this phase alone;
+9. engine times: each kernel's wrapper against its plain version, in turns
+   (kernel, plain, plain, kernel), with GB/s; K2 also at 1024^2 and 2048^2,
+   the data for re-setting the TPU-valued size gates; and the flagship
+   through its entry point (``st.to_array((v + v.T) / 2)``, host work
+   included) against eager ``(a + a.T) / 2``.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
 JSON object describing the kernels, then ``{"ok": true, "device": ...}``.
@@ -170,6 +190,9 @@ def main() -> None:
     print(f"[6 times] fused_admm B={batch} D=200 iters=6: kernel {ms_k:.4f}/{ms_k2:.4f} ms, "
           f"plain {ms_p:.4f}/{ms_p2:.4f} ms [{card}]")
 
+    wide_qp_check(dev)
+    engine = engine_phases(dev, card)
+
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
         "route": "cuda",
@@ -179,9 +202,313 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": min(ms_k, ms_k2),
         "plain_ms": min(ms_p, ms_p2),
-    }]}))
+    }, *engine]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def wide_qp_check(dev) -> None:
+    """Phase 7: D = 600 > MAX_D must take the loop path, not raise."""
+    from strided_tpu_torch import config, qp_solve
+    from strided_tpu_torch.entry import make_controller
+    from strided_tpu_torch.mpc import fused_admm as fa
+
+    _model, ctrl = make_controller(horizon=150, dt=0.02, device=dev)
+    qp = ctrl.qp
+    x = torch.as_tensor(np.random.default_rng(3).uniform(-0.3, 0.3, (256, 12)),
+                        dtype=torch.float32, device=dev)
+    before = fa.LAUNCHES
+    U = qp_solve(qp, x, ctrl.u_min, ctrl.u_max, iters=6, alpha=1.6)
+    config.set_config(fused_admm=False)
+    try:
+        U_loop = qp_solve(qp, x, ctrl.u_min, ctrl.u_max, iters=6, alpha=1.6)
+    finally:
+        config.set_config(fused_admm=True)
+    torch.cuda.synchronize()
+    err = (U - U_loop).abs().max().item()
+    print(f"[7 wide QP] N={qp.N} D={qp.N * qp.m} (MAX_D {fa.MAX_D}): kernel launches "
+          f"{fa.LAUNCHES - before}, |U - loop path| {err:.3e}, finite "
+          f"{bool(torch.isfinite(U).all())}")
+    if fa.LAUNCHES != before or not torch.isfinite(U).all() or err != 0.0:
+        raise RuntimeError("qp_solve at D=600 did not take the loop path cleanly")
+
+
+def _max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in f64; NaNs must sit in the same places."""
+    g, w = got.double(), want.double()
+    if got.shape != want.shape or not torch.equal(torch.isnan(g), torch.isnan(w)):
+        raise RuntimeError(f"shape or NaN pattern differs: {tuple(got.shape)} vs "
+                           f"{tuple(want.shape)}")
+    return (g - w).nan_to_num().abs().max().item()
+
+
+def coverage_checks(dev, gen) -> None:
+    """Phase 8, off the main path (not counted): the kernels on cases the
+    main path does not reach, each against its plain version: K4 on every
+    op of the elementwise program's table, on a two-input reduction and on
+    bf16; K3 with a program and in bf16; K2 on distinct buffers. Exact,
+    except where stated: a general ``powf`` and ``rsqrtf`` within 2 ulp."""
+    import strided_tpu_torch as st
+    from strided_tpu_torch.core import ewise, executor_cuda as ec
+    from strided_tpu_torch.core import kernels_special as ks, stream_reduce as sr
+
+    old_cfg = st.get_config()
+    st.set_config(map_min_elements=1, min_kernel_elements=1)  # 3M elements: below the map gate
+    try:
+        _coverage(dev, gen)
+    finally:
+        st.set_config(map_min_elements=old_cfg.map_min_elements,
+                      min_kernel_elements=old_cfg.min_kernel_elements,
+                      kernel_reductions=old_cfg.kernel_reductions)
+    torch.cuda.synchronize()
+
+
+def _coverage(dev, gen) -> None:
+    import strided_tpu_torch as st
+    from strided_tpu_torch.core import ewise, executor_cuda as ec
+    from strided_tpu_torch.core import kernels_special as ks, stream_reduce as sr
+
+    x = torch.randn(1000, 3000, device=dev, generator=gen) * 4
+    y = torch.randn(1000, 3000, device=dev, generator=gen)
+    ops = {"x + y": lambda a, b: a + b, "2 - x": lambda a, b: 2 - a,
+           "x * y * 3": lambda a, b: a * b * 3, "x / (|y| + 1)": lambda a, b: a / (abs(b) + 1),
+           "x / 3": lambda a, b: a / 3, "7 / (|x| + 1)": lambda a, b: 7 / (abs(a) + 1),
+           "x ** 2": lambda a, b: a ** 2, "x ** 3": lambda a, b: a ** 3,
+           "|x| ** 0.5": lambda a, b: abs(a) ** 0.5, "(|x|+1) ** -1": lambda a, b: (abs(a) + 1) ** -1,
+           "(|x|+1) ** 1.7": lambda a, b: (abs(a) + 1) ** 1.7, "x % 3": lambda a, b: a % 3,
+           "compare": lambda a, b: (a < b).int() + (a >= 1).int() * 8,
+           "min max": lambda a, b: torch.minimum(a, b) - torch.maximum(a, b * 0.5),
+           "-|x| + y": lambda a, b: -abs(a) + b, "where": lambda a, b: torch.where(a < 0, -a, b),
+           "cast": lambda a, b: a.to(torch.int32) * 2 + b.float(),
+           "int ops": lambda a, b: (a * 10).int() % 7 - (b * 10).int() * 3}
+    for dtype in (torch.float32, torch.bfloat16):
+        xs, ys = x.to(dtype), y.to(dtype)
+        xv, yv = st.transpose(st.strided(xs)), st.strided(ys.T.contiguous())
+        for name, f in ops.items():
+            if dtype == torch.bfloat16 and name in ("int ops", "cast", "compare"):
+                continue
+            out = st.strided(torch.empty(3000, 1000, device=dev, dtype=ewise.result_dtype(f, [dtype] * 2)))
+            plan = ec.make_plan(f, None, None, (3000, 1000), out, [xv, yv])
+            if plan is None:
+                raise RuntimeError(f"coverage {name}: the tile executor declined")
+            k = ec.tile_executor(plan, out.parent, [xv.parent, yv.parent])
+            p = ec.tile_executor_reference(plan, out.parent, [xv.parent, yv.parent])
+            e = _max_err(k, p)
+            approx = name in ("(|x|+1) ** 1.7",)
+            lim = 2 * torch.finfo(dtype).eps * p.abs().max().item() if approx else 0.0
+            print(f"[8 coverage] tile_executor {name} {dtype}: |kernel - plain| {e:.3e} (limit {lim:g})")
+            if not e <= lim:
+                raise RuntimeError(f"coverage {name} {dtype}: {e:.3e} > {lim:g}")
+    # a two-input reduction: out = max(old - 1, max over axis 0 of x * y)
+    st.set_config(kernel_reductions=True)
+    old = torch.randn(1, 3000, device=dev, generator=gen)
+    ov = st.broadcast_to(st.strided(old), (1000, 3000))
+    ins = [st.strided(x), st.strided(y)]
+    plan = ec.make_plan(lambda a, b: a * b, torch.maximum, lambda o: o - 1, (1000, 3000), ov, ins)
+    k = ec.tile_executor(plan, ov.parent, [x.reshape(-1), y.reshape(-1)])
+    p = ec.tile_executor_reference(plan, ov.parent, [x.reshape(-1), y.reshape(-1)])
+    e = _max_err(k, p)
+    print(f"[8 coverage] tile_executor two-input max-reduction: |kernel - plain| {e:.3e} (limit 0)")
+    if e != 0.0:
+        raise RuntimeError("two-input reduction off its plain version")
+    # a complete int32 reduction (one output: the extent in chunks over blocks)
+    xi = (x * 10).int()
+    one = torch.randint(-9, 9, (1, 1), device=dev, dtype=torch.int32, generator=gen)
+    ov1 = st.broadcast_to(st.strided(one), (1000, 3000))
+    plan = ec.make_plan(lambda a: a, torch.add, lambda o: 2 * o, (1000, 3000), ov1, [st.strided(xi)])
+    k = ec.tile_executor(plan, ov1.parent, [xi.reshape(-1)])
+    e = _max_err(k, ec.tile_executor_reference(plan, ov1.parent, [xi.reshape(-1)]))
+    print(f"[8 coverage] tile_executor complete int32 sum: |kernel - plain| {e:.3e} (limit 0)")
+    if e != 0.0:
+        raise RuntimeError("complete reduction off its plain version")
+    for dtype, f in ((torch.float32, lambda t: t * 0.5 + 1), (torch.bfloat16, lambda t: t)):
+        a = x.to(dtype)
+        prog = ewise.trace(f, [dtype], out_dtype=dtype)
+        for red in (sr.RED_MAX, sr.RED_SUM):
+            k, p = sr.stream_reduce(a, prog, red), sr.stream_reduce_reference(a, prog, red)
+            e = _max_err(k, p)
+            lim = 0.0 if red == sr.RED_MAX else 1e-6 * a.shape[0] * 4 * x.abs().max().item() + (
+                2 * torch.finfo(dtype).eps * p.abs().max().item() if dtype == torch.bfloat16 else 0)
+            print(f"[8 coverage] stream_reduce red={red} {dtype}: |kernel - plain| {e:.3e} (limit {lim:g})")
+            if not e <= lim:
+                raise RuntimeError(f"stream_reduce coverage off by {e:.3e}")
+    a, c = torch.randn(2, 3001, 3001, device=dev, generator=gen)
+    k = ks.pair_axpby(a, c, alpha=2.0, beta=-3.0, scale_mode="mul", scale=0.25)
+    p = ks.pair_reference(a, c, alpha=2.0, beta=-3.0, scale_mode="mul", scale=0.25)
+    e = _max_err(k, p)
+    print(f"[8 coverage] pair_axpby distinct 3001^2: |kernel - plain| {e:.3e} (limit 0)")
+    if e != 0.0:
+        raise RuntimeError("pair_axpby distinct buffers off its plain version")
+
+
+def engine_phases(dev, card):
+    """Phases 8 and 9: the strided engine's main path and its three kernels.
+    Returns the kernels' entries for the JSON line."""
+    import strided_tpu_torch as st
+    from strided_tpu_torch.bench import cuda_ms
+    from strided_tpu_torch.core import ewise, executor_cuda as ec
+    from strided_tpu_torch.core import kernels_special as ks, lazy_expr as le
+    from strided_tpu_torch.core import stream_reduce as sr
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
+    randi = lambda *shape: torch.randint(-9, 9, shape, device=dev, dtype=torch.int32,  # noqa: E731
+                                         generator=gen)
+    err = {"pair_axpby": 0.0, "stream_reduce": 0.0, "tile_executor": 0.0}
+
+    def check(kernel, what, got, want, atol=0.0):
+        torch.cuda.synchronize()
+        e = _max_err(got, want)
+        print(f"[8 engine] {what}: |kernel - plain| {e:.3e} (limit {atol:g})")
+        if not e <= atol:
+            raise RuntimeError(f"{what}: kernel off its plain version by {e:.3e} > {atol:g}")
+        err[kernel] = max(err[kernel], e)
+
+    def expect(what, record, want):
+        if record != want:
+            raise RuntimeError(f"{what}: dispatch went to {record!r}, expected {want!r}")
+
+    ks.LAUNCHES = sr.LAUNCHES = ec.LAUNCHES = 0
+    # K2, through the lazy expression: the reference's flagship and family
+    pairs = [(4000, torch.float32, "(v + v.T) / 2"), (8192, torch.float32, "(v + v.T) / 2"),
+             (4000, torch.float32, "3*v + 2*v.T"), (4000, torch.float32, "v - v.T"),
+             (4096, torch.bfloat16, "(v + v.T) / 2"), (4001, torch.float32, "(v + v.T) / 2")]
+    plain_kw = {"(v + v.T) / 2": dict(scale_mode="div", scale=2.0),
+                "3*v + 2*v.T": dict(alpha=3.0, beta=2.0), "v - v.T": dict(beta=-1.0)}
+    for n, dt, spelling in pairs:
+        a = randn(n, n).to(dt)
+        v = st.strided(a)
+        expr = {"(v + v.T) / 2": lambda: (v + st.transpose(v)) / 2,
+                "3*v + 2*v.T": lambda: 3 * v + 2 * st.transpose(v),
+                "v - v.T": lambda: v - st.transpose(v)}[spelling]()
+        le.LAST_EXPR_DISPATCH = ""
+        got = st.to_array(expr)
+        expect(spelling, le.LAST_EXPR_DISPATCH, "pair-kernel")
+        check("pair_axpby", f"{spelling} {n}^2 {dt}", got, ks.pair_reference(a, **plain_kw[spelling]))
+    # K3, through the reductions
+    n = 8192
+    a = randn(n, n)
+    v = st.strided(a)
+    tol = 1e-6 * n * a.abs().max().item()
+    for what, call, want, atol in (
+        ("ssum(v, axis=0) 8192^2 f32", lambda: st.ssum(v, axis=0), a.sum(0, keepdim=True), tol),
+        ("smax(transpose(v), axis=1) 8192^2 f32", lambda: st.smax(st.transpose(v), axis=1),
+         a.amax(0).reshape(n, 1), 0.0),
+    ):
+        ks.LAST_REDUCE_DISPATCH = ""
+        got = st.materialize(call())
+        expect(what, ks.LAST_REDUCE_DISPATCH, "stream-kernel")
+        check("stream_reduce", what, got, want, atol)
+    ai = randi(8192, 4096)
+    got = st.materialize(st.ssum(st.strided(ai), axis=0))
+    expect("int32 ssum", ks.LAST_REDUCE_DISPATCH, "stream-kernel")
+    check("stream_reduce", "ssum(int32 8192x4096, axis=0)", got, ai.sum(0, keepdim=True, dtype=torch.int32))
+    # K4, through permutedims_into, smap and (forced) mapreducedim_into
+    out = st.strided(torch.empty(n, n, device=dev))
+    ec.LAST_PLAN.clear()
+    got = st.materialize(st.permutedims_into(out, v, (1, 0)))
+    expect("permutedims_into 8192^2", bool(ec.LAST_PLAN), True)
+    check("tile_executor", "permutedims_into(8192^2, (1, 0))", got, a.T)
+    y = randn(64, 128, 64, 128)
+    perm = (1, 3, 0, 2)
+    out4 = st.strided(torch.empty(tuple(y.shape[p] for p in perm), device=dev))
+    got = st.materialize(st.permutedims_into(out4, st.strided(y), perm))
+    expect("rank-4 permute", bool(ec.LAST_PLAN), True)
+    check("tile_executor", f"permutedims_into(64x128x64x128, {perm})", got, y.permute(perm))
+    w = randn(n, n)
+    got = st.materialize(st.smap(lambda p, q: p * 3 + q, st.transpose(v), st.strided(w)))
+    expect("smap(x*3 + y, v.T, w)", bool(ec.LAST_PLAN), True)
+    check("tile_executor", "smap(x*3 + y, v.T, w) 8192^2", got, a.T * 3 + w)
+    old_cfg = st.get_config()
+    st.set_config(kernel_reductions=True)
+    try:
+        xi, old = randi(8192, 4096), randi(1, 4096)
+        ov = st.broadcast_to(st.strided(old), (8192, 4096))
+        res = st.mapreducedim_into(lambda t: t, torch.add, lambda o: 3 * o, ov, st.strided(xi))
+        expect("initop reduction", bool(ec.LAST_PLAN), True)
+        check("tile_executor", "3*old + sum(int32 8192x4096, axis=0)", res.parent.reshape(1, 4096),
+              3 * old + xi.sum(0, keepdim=True, dtype=torch.int32))
+    finally:
+        st.set_config(kernel_reductions=old_cfg.kernel_reductions)
+    torch.cuda.synchronize()
+    launches = {"pair_axpby": ks.LAUNCHES, "stream_reduce": sr.LAUNCHES,
+                "tile_executor": ec.LAUNCHES}
+    print(f"[8 engine] launches on the main path: {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise RuntimeError(f"{name} was not launched on the engine's main path")
+
+    coverage_checks(dev, gen)
+
+    # phase 9: each wrapper against its plain version, in turns
+    def turns(kernel, plain, reps):
+        k1, p1, p2, k2 = (cuda_ms(f, reps=reps) for f in (kernel, plain, plain, kernel))
+        return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+
+    def report(what, nbytes, times):
+        k, p, (k1, k2, p1, p2) = times
+        print(f"[9 times] {what}: kernel {k1:.4f}/{k2:.4f} ms ({nbytes / k / 1e6:.0f} GB/s), "
+              f"plain {p1:.4f}/{p2:.4f} ms ({nbytes / p / 1e6:.0f} GB/s) [{card}]")
+
+    pair_times = {}
+    for n in (1024, 2048, 4000, 8192):
+        a = randn(n, n)
+        kw = dict(scale_mode="div", scale=2.0)
+        pair_times[n] = turns(lambda: ks.pair_axpby(a, **kw), lambda: ks.pair_reference(a, **kw),
+                              reps=50 if n >= 4000 else 200)
+        report(f"pair_axpby (a + a.T)/2 {n}^2 f32", 2 * 4 * n * n, pair_times[n])
+    for n in (1024, 4000, 8192):  # through the entry point: host work included
+        a = randn(n, n)
+        v = st.strided(a)
+        st.to_array((v + st.transpose(v)) / 2)
+        report(f"end to end st.to_array((v + v.T) / 2) {n}^2 f32 "
+               f"[{le.LAST_EXPR_DISPATCH}]", 2 * 4 * n * n,
+               turns(lambda: st.to_array((v + st.transpose(v)) / 2), lambda: (a + a.T) / 2,
+                     reps=50))
+    a = randn(8192, 8192)
+    ident = ewise.trace(lambda t: t, [torch.float32], out_dtype=torch.float32)
+    red_t = turns(lambda: sr.stream_reduce(a, ident, sr.RED_SUM),
+                  lambda: sr.stream_reduce_reference(a, ident, sr.RED_SUM), reps=50)
+    report("stream_reduce sum axis 0, 8192^2 f32", 4 * a.numel(), red_t)
+    va = st.strided(a)
+    out = st.strided(torch.empty(8192, 8192, device=dev))
+    ins = [st.transpose(va)]
+    plan = ec.make_plan(lambda t: t, None, None, out.shape, out, ins)
+    tparents = [va.parent]
+    t_times = turns(lambda: ec.tile_executor(plan, out.parent, tparents),
+                    lambda: ec.tile_executor_reference(plan, out.parent, tparents), reps=50)
+    report("tile_executor transpose copy 8192^2 f32", 2 * 4 * a.numel(), t_times)
+    wparents = [va.parent, st.strided(w).parent]
+    plan_s = ec.make_plan(lambda p, q: p * 3 + q, None, None, out.shape, out,
+                          [st.transpose(va), st.strided(w)])
+    report("tile_executor smap(x*3 + y, v.T, w) 8192^2 f32", 3 * 4 * a.numel(),
+           turns(lambda: ec.tile_executor(plan_s, out.parent, wparents),
+                 lambda: ec.tile_executor_reference(plan_s, out.parent, wparents), reps=20))
+    vy = st.strided(y)
+    ins4 = [st.permutedims(vy, perm)]
+    plan4 = ec.make_plan(lambda t: t, None, None, out4.shape, out4, ins4)
+    report(f"tile_executor permute {perm} 64x128x64x128 f32", 2 * 4 * y.numel(),
+           turns(lambda: ec.tile_executor(plan4, out4.parent, [vy.parent]),
+                 lambda: ec.tile_executor_reference(plan4, out4.parent, [vy.parent]), reps=50))
+    st.set_config(kernel_reductions=True)
+    try:
+        ov = st.broadcast_to(st.strided(old), (8192, 4096))
+        planr = ec.make_plan(lambda t: t, torch.add, lambda o: 3 * o, (8192, 4096), ov,
+                             [st.strided(xi)])
+    finally:
+        st.set_config(kernel_reductions=old_cfg.kernel_reductions)
+    report("tile_executor 3*old + sum axis 0, int32 8192x4096", 4 * xi.numel(),
+           turns(lambda: ec.tile_executor(planr, ov.parent, [xi.reshape(-1)]),
+                 lambda: ec.tile_executor_reference(planr, ov.parent, [xi.reshape(-1)]), reps=50))
+
+    def entry(name, replaces, times):
+        return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
+                "ms": times[0], "plain_ms": times[1]}
+
+    return [entry("pair_axpby", "strided_tpu/core/kernels_special.py:147", pair_times[8192]),
+            entry("stream_reduce", "strided_tpu/core/kernels_special.py:511", red_t),
+            entry("tile_executor", "strided_tpu/core/executor_pallas.py:137", t_times)]
 
 
 if __name__ == "__main__":

@@ -1,11 +1,15 @@
 """strided_tpu_torch: the PyTorch / CUDA port of strided_tpu.
 
-This slice covers the scenario-batched quadrotor MPC step: the models, the
-condensed-QP solver with its fused-ADMM CUDA kernel, and the closed-loop
-controller. The strided engine is not ported yet.
+Two slices are ported. The scenario-batched quadrotor MPC step: the models,
+the condensed-QP solver with its fused-ADMM CUDA kernel, and the
+closed-loop controller. And the strided engine: lazy strided views, lazy
+expressions, the fused map/broadcast/reduce engine, with its tile-pair
+(K2), stream-reduction (K3) and tile-executor (K4) CUDA kernels. The
+engine's linalg layer is not ported yet.
 """
 
 from . import config  # noqa: F401
+from .config import Config, get_config, set_config  # noqa: F401
 from .models import Model, rk4_step, linearize, quadrotor, hover_state, hover_input  # noqa: F401
 from .mpc import (  # noqa: F401
     CondensedQP,
@@ -16,3 +20,41 @@ from .mpc import (  # noqa: F401
     qp_solve,
     qp_solve_unconstrained,
 )
+from .core.view import (  # noqa: F401
+    StridedView,
+    StridedLayoutError,
+    strided,
+    as_view,
+    isstrided,
+    permutedims,
+    transpose,
+    adjoint,
+    conj,
+    sreshape,
+    sview,
+    set_view,
+    flip,
+    broadcast_to,
+)
+from .core.regularize import materialize  # noqa: F401
+from .core.mapreduce import (  # noqa: F401
+    smap,
+    map_into,
+    copy_into,
+    permutedims_into,
+    adjoint_into,
+    conj_into,
+    sreduce,
+    sreduce_dims,
+    mapreducedim_into,
+    fused_mapreduce,
+    ssum,
+    sprod,
+    smax,
+    smin,
+    smean,
+)
+from .core.broadcast import sbroadcast, sbroadcast_into, StridedExpr  # noqa: F401
+from .api import strided_jit, maybe_strided, maybe_unstrided, to_array  # noqa: F401
+from .core.kernels_special import symmetrize, pair_axpby  # noqa: F401
+from . import ops  # noqa: F401

@@ -1,7 +1,8 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled at first use into one shared library
-with a plain C interface, under ``strided_tpu_torch/_build/``. The library is
+Every ``csrc/*.cu`` file is compiled at first use (one nvcc per file, all
+at once) and linked into one shared library with a plain C interface, under
+``strided_tpu_torch/_build/``. The library is
 named after a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one is loaded as it is. Nothing here runs at import time.
 """
@@ -23,7 +24,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # register, shared-memory and spill report, kept in the log
 )
 
@@ -65,16 +66,38 @@ def load_library() -> ctypes.CDLL:
     lib = BUILD_DIR / f"libstrided_kernels_{h.hexdigest()[:16]}.so"
     if not lib.is_file():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in sources if p.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+        _compile_and_link(sources, lib)
     return ctypes.CDLL(str(lib))
+
+
+def _compile_and_link(sources: list[Path], lib: Path) -> None:
+    """One nvcc per ``.cu`` source, all started together, then one link.
+    The compiler output of every step goes to the ``.log`` beside ``lib``."""
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in (p for p in sources if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{lib.stem}.{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log = []
+    failed = []
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = lib.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _c, o, _p in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
+    for _c, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing

@@ -1,9 +1,10 @@
 """Runtime configuration for strided_tpu_torch.
 
-Counterpart of ``strided_tpu/config.py``. Only the two knobs the ported MPC
-path reads survive: the fused-ADMM kernel toggle and the f32 matmul precision.
-The TPU tuning fields (VMEM budget, lane/sublane tiling, Pallas size gates)
-have no meaning on a GPU and are not carried over.
+Counterpart of ``strided_tpu/config.py``: the MPC path's two knobs (the
+fused-ADMM kernel toggle and the f32 matmul precision) and the strided
+engine's dispatch toggles and size gates. The TPU's tiling fields (VMEM
+budget, lane/sublane, the Pallas budget divisor, interpret mode) have no
+meaning on a GPU and are not carried over.
 """
 
 from __future__ import annotations
@@ -25,6 +26,30 @@ class Config:
     # "highest" keeps f32 matmuls in IEEE FP32: the ADMM accuracy gate (first
     # input within 1e-4 of a converged f64 oracle) fails with TF32 products.
     matmul_precision: str = "highest"
+
+    # -- strided engine (core/) ------------------------------------------
+    # Master toggle for the engine's CUDA kernels (K2 pair_axpby, K3
+    # stream_reduce, K4 tile_executor); the analog of ``use_pallas``. Off,
+    # every engine call takes the plain PyTorch path.
+    use_kernels: bool = True
+    # Recognise the transpose-pair family ``ep(a*A + b*A.T)`` in lazy
+    # expressions and run it through K2.
+    expr_pattern_dispatch: bool = True
+    # Leading-physical-axis partial reductions through K3.
+    stream_reductions: bool = True
+    # Reductions (op given, reduced dims present) through K4; off by
+    # default, as ``pallas_reductions`` is in the reference.
+    kernel_reductions: bool = False
+    # Maps whose operands need no transposed read through K4 (off: the
+    # reference keeps them on its plain path).
+    aligned_maps: bool = False
+    # Size gates, in elements. They are the reference's TPU values, kept
+    # so both packages dispatch alike in the parity tests; they are to be
+    # re-set from the card's measured crossover (PERF.md).
+    min_kernel_elements: int = 1 << 15
+    map_min_elements: int = 1 << 25
+    pair_kernel_min_elements: int = 1 << 22
+    min_stream_reduce_elements: int = 1 << 24
 
 
 _config = Config()

@@ -1,0 +1,364 @@
+// K4: the generic tile executor, the engine's map / map-reduce kernel.
+//
+// Replaces the Pallas kernel strided_tpu/core/executor_pallas.py::_run: over
+// an iteration space of up to 5 fused and ordered dims (core/planner.py),
+// out[I] = f(in_0[I], ..., in_k[I]) for a map, or
+// out[I] = op(initop(old[I]), fold over the reduced dims of f(in[I, R]))
+// for a map-reduce. Every operand is a pure reshape of its flat parent and
+// has its own strides (0 on broadcast dims; the output's are 0 on reduced
+// dims) and offset. f and initop arrive as elementwise programs
+// (ewise.cuh).
+//
+// What bounds it on an H100: bytes, each operand element read once and each
+// output element written once, against 3.35 TB/s. Its layouts are the
+// scrambled ones (transposed reads), where one side of the copy cannot be
+// coalesced.
+//
+// Design: a map whose inputs read transposed goes through 32 x 64 tiles in
+// padded shared memory (tile_executor_t2d), the Hopper form of the TPU
+// kernel's in-VMEM transpose: every load and store is coalesced. Any other
+// map is per element: a thread owns one output element (the loop order puts
+// the output's unit-stride dim innermost, so writes are coalesced) and
+// computes every operand's address from its coordinates.
+// For a reduction a block owns 32 output elements (1 below 32 outputs) and
+// splits the reduced extent over the rest of its 256 threads; where that
+// leaves the SMs idle the extent is also cut into chunks over blocks. Each
+// thread folds its share in order, a fixed-order merge in shared memory
+// combines a block's, a second pass merges the chunks' partials in chunk
+// order, and one thread applies initop to the old value exactly once,
+// folds the result in and writes once. This loop inside the
+// block replaces the TPU's sequential reduction grid axes, which cannot
+// carry over because blocks run in no order. No atomics: deterministic.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ewise.cuh"
+
+#define TE_MAX_DIM 5
+#define TE_MAX_IN EW_MAX_IN
+
+// Exported through the C launcher, so these live outside the anonymous
+// namespace (core/executor_cuda.py mirrors them with ctypes).
+struct TeOperand {
+  const void* ptr;
+  int64_t stride[TE_MAX_DIM];
+  int64_t offset;
+  int32_t type, pad;
+};
+
+struct TeParams {
+  int32_t rank, n_par, n_in, red;  // red < 0: a map
+  int64_t dims[TE_MAX_DIM];
+  int64_t n_out, n_red;
+  int32_t part_type;
+  int32_t tdim;    // a map's tiled dim (>= 0: stage the inputs in tmask through shared memory)
+  int32_t tmask;   // bit k: input k reads along tdim with stride 1
+  int32_t chunks;  // a reduction's chunks of the reduced extent (> 1: partials in scratch)
+  int32_t x_lanes, pad;  // a reduction's outputs per block (1, 8 or 32)
+  EwVal* scratch;        // chunks * n_out partials
+  TeOperand out, old;  // old: the output's previous values (reductions)
+  TeOperand in[TE_MAX_IN];
+  EwProgram body, init;  // f (result: out type for a map, partial type for a reduction); initop
+};
+
+namespace {
+
+constexpr int THREADS = 256;
+
+// Add coordinate c of loop dim d to every operand's offset.
+__device__ __forceinline__ void advance(const TeParams& p, int d, int64_t c, int64_t* off) {
+  for (int k = 0; k < p.n_in; ++k) off[k] += c * p.in[k].stride[d];
+}
+
+// Offset of input 0 at linear reduction index r (the trailing loop dims).
+__device__ __forceinline__ int64_t red_offset(const TeParams& p, int64_t r) {
+  if (p.rank - p.n_par == 1) return r * p.in[0].stride[p.rank - 1];  // no division
+  uint32_t rem = (uint32_t)r;
+  int64_t off = 0;
+  for (int d = p.rank - 1; d >= p.n_par; --d) {
+    const uint32_t dim = (uint32_t)p.dims[d];
+    off += (int64_t)(rem % dim) * p.in[0].stride[d];
+    rem /= dim;
+  }
+  return off;
+}
+
+__device__ __forceinline__ EwVal eval1(const EwProgram& prog, EwVal x) {
+  if (prog.n_instr == 0) return x;
+  EwVal r[EW_MAX_REG];
+  r[0] = x;
+  return ew_run(prog, r);
+}
+
+__device__ __forceinline__ EwVal eval_at(const TeParams& p, const int64_t* off) {
+  EwVal r[EW_MAX_REG];
+  for (int k = 0; k < p.n_in; ++k) r[k] = ew_load(p.in[k].ptr, off[k], p.in[k].type);
+  if (p.body.n_instr == 0) return r[0];
+  return ew_run(p.body, r);
+}
+
+// Output offset of linear output index o (the parallel loop dims).
+__device__ __forceinline__ int64_t out_offset(const TeParams& p, int64_t o) {
+  uint32_t rem = (uint32_t)o;
+  int64_t off = p.out.offset;
+  for (int d = p.n_par - 1; d >= 0; --d) {
+    const uint32_t dim = (uint32_t)p.dims[d];
+    off += (int64_t)(rem % dim) * p.out.stride[d];
+    rem /= dim;
+  }
+  return off;
+}
+
+// A reduction's last step for one output: the folded partial in its own
+// type, then op(initop(old), partial), written once.
+__device__ __forceinline__ void finish(const TeParams& p, int64_t out_off, EwVal acc) {
+  const int t = p.part_type;
+  const bool truth = p.red == EW_RED_ALL || p.red == EW_RED_ANY;
+  if (!truth && t == EW_BF16) acc.f = ew_bf16(acc.f);
+  EwVal reg[EW_MAX_REG];
+  reg[0] = ew_load(p.old.ptr, out_off, p.old.type);
+  EwVal seed = ew_run(p.init, reg);  // initop (or identity), cast to the partial type
+  EwVal fin = ew_red_merge(p.red, t, seed, acc);
+  if (!truth && t == EW_BF16) fin.f = ew_bf16(fin.f);
+  ew_store((void*)p.out.ptr, out_off, p.out.type, ew_cast(fin, truth ? EW_BOOL : t, p.out.type));
+}
+
+__global__ void __launch_bounds__(THREADS) tile_executor_kernel(const __grid_constant__ TeParams p) {
+  __shared__ EwVal part[THREADS];
+  const int X = blockDim.x, Y = blockDim.y;
+  const int64_t o = (int64_t)blockIdx.x * X + threadIdx.x;
+  const bool live = o < p.n_out;
+  int64_t off[TE_MAX_IN];
+  int64_t out_off = p.out.offset;
+  for (int k = 0; k < p.n_in; ++k) off[k] = p.in[k].offset;
+  if (live) {  // coordinates in 32 bits: the wrapper keeps the space below 2^31
+    uint32_t rem = (uint32_t)o;
+    for (int d = p.n_par - 1; d >= 0; --d) {
+      const uint32_t dim = (uint32_t)p.dims[d], c = rem % dim;
+      rem /= dim;
+      advance(p, d, c, off);
+      out_off += (int64_t)c * p.out.stride[d];
+    }
+  }
+  if (p.red < 0) {  // map: the body already yields the output type
+    if (live) ew_store((void*)p.out.ptr, out_off, p.out.type, eval_at(p, off));
+    return;
+  }
+  const int t = p.part_type;
+  EwVal acc = ew_red_identity(p.red, t);
+  const int64_t per = (p.n_red + p.chunks - 1) / p.chunks;  // this block's share
+  const int64_t r0 = (int64_t)blockIdx.y * per;
+  const int64_t r1 = r0 + per < p.n_red ? r0 + per : p.n_red;
+  if (live && p.n_in == 1) {  // one input: eight loads in flight, then eight folds
+    constexpr int U = 8;
+    int64_t r = r0 + threadIdx.y;
+    for (; r + (U - 1) * Y < r1; r += U * Y) {
+      EwVal x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) x[u] = ew_load(p.in[0].ptr, off[0] + red_offset(p, r + u * Y), p.in[0].type);
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc = ew_red_fold(p.red, t, acc, eval1(p.body, x[u]));
+    }
+    for (; r < r1; r += Y)
+      acc = ew_red_fold(p.red, t, acc,
+                        eval1(p.body, ew_load(p.in[0].ptr, off[0] + red_offset(p, r), p.in[0].type)));
+  } else if (live) {
+    for (int64_t r = r0 + threadIdx.y; r < r1; r += Y) {
+      int64_t roff[TE_MAX_IN];
+      for (int k = 0; k < p.n_in; ++k) roff[k] = off[k];
+      uint32_t rem = (uint32_t)r;
+      for (int d = p.rank - 1; d >= p.n_par; --d) {
+        const uint32_t dim = (uint32_t)p.dims[d];
+        advance(p, d, rem % dim, roff);
+        rem /= dim;
+      }
+      acc = ew_red_fold(p.red, t, acc, eval_at(p, roff));
+    }
+  }
+  part[threadIdx.y * X + threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y != 0 || !live) return;
+  for (int l = 1; l < Y; ++l) acc = ew_red_merge(p.red, t, acc, part[l * X + threadIdx.x]);
+  if (gridDim.y > 1)
+    p.scratch[(int64_t)blockIdx.y * p.n_out + o] = acc;
+  else
+    finish(p, out_off, acc);
+}
+
+// Second pass of a chunked reduction: the chunks' partials merged in chunk
+// order, then finish (initop once, one write).
+__global__ void tile_executor_merge(const __grid_constant__ TeParams p) {
+  const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= p.n_out) return;
+  EwVal acc = p.scratch[o];
+  for (int c = 1; c < p.chunks; ++c)
+    acc = ew_red_merge(p.red, p.part_type, acc, p.scratch[(int64_t)c * p.n_out + o]);
+  finish(p, out_offset(p, o), acc);
+}
+
+// A map whose inputs read transposed: tiles of 32 (along the last loop dim,
+// the output's unit-stride dim) x 64 (along tdim). The inputs in tmask are
+// read along tdim (their unit-stride dim) with coalesced loads into padded
+// shared memory (one slot per staged input, dynamic), then every thread
+// computes output elements along the last dim and writes them coalesced; a
+// thread keeps eight loads and eight stores in flight. The other loop dims
+// index the tile rows.
+constexpr int TX = 32, TY = 64, R2 = 8;
+constexpr int SLOT = TX * (TY + 1);  // EwVals per staged input
+
+__global__ void __launch_bounds__(TX * R2) tile_executor_t2d(const __grid_constant__ TeParams p) {
+  extern __shared__ EwVal tiles[];
+  const int dx = p.rank - 1, dy = p.tdim;
+  const uint32_t nx = (uint32_t)p.dims[dx], ny = (uint32_t)p.dims[dy];
+  const uint32_t tx_tiles = (nx + TX - 1) / TX, ty_tiles = (ny + TY - 1) / TY;
+  uint32_t b = blockIdx.x;
+  const uint32_t x0 = (b % tx_tiles) * TX;
+  b /= tx_tiles;
+  const uint32_t y0 = (b % ty_tiles) * TY;
+  b /= ty_tiles;
+  int64_t off[TE_MAX_IN];
+  int64_t out_off = p.out.offset;
+  for (int k = 0; k < p.n_in; ++k) off[k] = p.in[k].offset;
+  for (int d = dx - 1; d >= 0; --d) {  // the tile row: every other dim
+    if (d == dy) continue;
+    const uint32_t dim = (uint32_t)p.dims[d], c = b % dim;
+    b /= dim;
+    advance(p, d, c, off);
+    out_off += (int64_t)c * p.out.stride[d];
+  }
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  int slot = 0;
+  for (int k = 0; k < p.n_in; ++k) {
+    if (!((p.tmask >> k) & 1)) continue;
+    EwVal* tile = tiles + slot++ * SLOT;  // tile[x][y], row length TY + 1
+#pragma unroll
+    for (int c = 0; c < TY; c += TX) {
+      const uint32_t y = y0 + c + tx;
+#pragma unroll
+      for (int j = ty; j < TX; j += R2) {
+        const uint32_t x = x0 + j;
+        if (x < nx && y < ny)
+          tile[j * (TY + 1) + c + tx] = ew_load(
+              p.in[k].ptr, off[k] + (int64_t)y * p.in[k].stride[dy] + (int64_t)x * p.in[k].stride[dx],
+              p.in[k].type);
+      }
+    }
+  }
+  __syncthreads();
+  const uint32_t x = x0 + tx;
+  if (x >= nx) return;
+  for (int i = ty; i < TY; i += R2) {
+    const uint32_t y = y0 + i;
+    if (y >= ny) break;
+    EwVal r[EW_MAX_REG];
+    int s = 0;
+    for (int k = 0; k < p.n_in; ++k)
+      r[k] = ((p.tmask >> k) & 1)
+                 ? tiles[s++ * SLOT + tx * (TY + 1) + i]
+                 : ew_load(p.in[k].ptr, off[k] + (int64_t)y * p.in[k].stride[dy] +
+                                            (int64_t)x * p.in[k].stride[dx], p.in[k].type);
+    const EwVal v = p.body.n_instr == 0 ? r[0] : ew_run(p.body, r);
+    ew_store((void*)p.out.ptr,
+             out_off + (int64_t)y * p.out.stride[dy] + (int64_t)x * p.out.stride[dx],
+             p.out.type, v);
+  }
+}
+
+// The same tiles for the commonest case, a transposed copy (one input, the
+// identity, one type): T is the element type, and nothing but the copy is
+// left in the loop.
+template <typename T>
+__global__ void __launch_bounds__(TX * R2) tile_copy_t2d(const __grid_constant__ TeParams p) {
+  __shared__ T tile[TX][TY + 1];
+  const int dx = p.rank - 1, dy = p.tdim;
+  const uint32_t nx = (uint32_t)p.dims[dx], ny = (uint32_t)p.dims[dy];
+  const uint32_t tx_tiles = (nx + TX - 1) / TX, ty_tiles = (ny + TY - 1) / TY;
+  uint32_t b = blockIdx.x;
+  const uint32_t x0 = (b % tx_tiles) * TX;
+  b /= tx_tiles;
+  const uint32_t y0 = (b % ty_tiles) * TY;
+  b /= ty_tiles;
+  int64_t in_off = p.in[0].offset, out_off = p.out.offset;
+  for (int d = dx - 1; d >= 0; --d) {
+    if (d == dy) continue;
+    const uint32_t dim = (uint32_t)p.dims[d], c = b % dim;
+    b /= dim;
+    in_off += (int64_t)c * p.in[0].stride[d];
+    out_off += (int64_t)c * p.out.stride[d];
+  }
+  const T* __restrict__ src = (const T*)p.in[0].ptr + in_off;
+  T* __restrict__ dst = (T*)p.out.ptr + out_off;
+  const int64_t sx = p.in[0].stride[dx], sy = p.in[0].stride[dy];
+  const int64_t ox = p.out.stride[dx], oy = p.out.stride[dy];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int c = 0; c < TY; c += TX) {
+    const uint32_t y = y0 + c + tx;
+#pragma unroll
+    for (int j = ty; j < TX; j += R2) {
+      const uint32_t x = x0 + j;
+      if (x < nx && y < ny) tile[j][c + tx] = src[(int64_t)y * sy + (int64_t)x * sx];
+    }
+  }
+  __syncthreads();
+  const uint32_t x = x0 + tx;
+  if (x >= nx) return;
+#pragma unroll
+  for (int i = ty; i < TY; i += R2) {
+    const uint32_t y = y0 + i;
+    if (y < ny) dst[(int64_t)y * oy + (int64_t)x * ox] = tile[tx][i];
+  }
+}
+
+}  // namespace
+
+extern "C" int strided_tile_executor(const TeParams* p, void* stream) {
+  if (p->rank < 1 || p->rank > TE_MAX_DIM || p->n_in < 0 || p->n_in > TE_MAX_IN ||
+      p->n_out < 1 || p->n_red < 1)
+    return (int)cudaErrorInvalidValue;
+  if (p->red < 0 && p->tdim >= 0) {
+    if (p->tdim >= p->rank - 1 || p->n_par != p->rank) return (int)cudaErrorInvalidValue;
+    const int64_t tiles = ((p->dims[p->rank - 1] + TX - 1) / TX) *
+                          ((p->dims[p->tdim] + TY - 1) / TY) * p->n_out /
+                          (p->dims[p->rank - 1] * p->dims[p->tdim]);
+    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const bool copy = p->n_in == 1 && p->tmask == 1 && p->body.n_instr == 0 &&
+                      p->in[0].type == p->out.type;
+    if (copy) {
+      if (p->out.type == EW_BF16)
+        tile_copy_t2d<__nv_bfloat16><<<(unsigned)tiles, dim3(TX, R2), 0, (cudaStream_t)stream>>>(*p);
+      else
+        tile_copy_t2d<int32_t><<<(unsigned)tiles, dim3(TX, R2), 0, (cudaStream_t)stream>>>(*p);
+      return (int)cudaGetLastError();
+    }
+    const size_t smem = (size_t)__builtin_popcount(p->tmask) * SLOT * sizeof(EwVal);
+    cudaError_t err = cudaFuncSetAttribute(tile_executor_t2d,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           TE_MAX_IN * SLOT * (int)sizeof(EwVal));
+    if (err != cudaSuccess) return (int)err;
+    tile_executor_t2d<<<(unsigned)tiles, dim3(TX, R2), smem, (cudaStream_t)stream>>>(*p);
+    return (int)cudaGetLastError();
+  }
+  // a map: one output element a thread. A reduction: x_lanes outputs a
+  // block, the reduced extent over the other 256 / x_lanes threads and over
+  // ``chunks`` blocks (the wrapper picks both, and the scratch).
+  int X = THREADS, Y = 1, chunks = 1;
+  if (p->red >= 0 && p->n_red > 1) {
+    X = p->x_lanes;
+    chunks = p->chunks;
+    if ((X != 1 && X != 8 && X != 32) || chunks < 1 || chunks > 65535 ||
+        (chunks > 1 && p->scratch == nullptr))
+      return (int)cudaErrorInvalidValue;
+    Y = THREADS / X;
+  } else if (p->chunks != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t blocks = (p->n_out + X - 1) / X;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  tile_executor_kernel<<<dim3((unsigned)blocks, chunks), dim3(X, Y), 0, s>>>(*p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return (int)err;
+  tile_executor_merge<<<(unsigned)((p->n_out + THREADS - 1) / THREADS), THREADS, 0, s>>>(*p);
+  return (int)cudaGetLastError();
+}

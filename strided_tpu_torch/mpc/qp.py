@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import get_config, matmul_precision_scope
-from .fused_admm import fused_admm
+from . import fused_admm as _fa
 
 __all__ = ["CondensedQP", "build_condensed", "qp_solve", "qp_solve_unconstrained"]
 
@@ -118,14 +118,20 @@ def _chol_solve(L, b):
     return z.T.reshape(bshape)
 
 
-def _fused_admm_eligible(qp: CondensedQP, z2: torch.Tensor) -> bool:
+def _fused_admm_fits(qp: CondensedQP, z2: torch.Tensor) -> bool:
+    """The kernel's own limits, device aside: the explicit-inverse solver,
+    (B, D) f32 iterates and D <= MAX_D. A wider QP takes the loop path, as
+    the JAX package's scan does for every D."""
     return (
-        get_config().fused_admm
-        and not qp.use_chol
+        not qp.use_chol
         and z2.ndim == 2
         and z2.dtype == torch.float32
-        and z2.is_cuda
+        and z2.shape[-1] <= _fa.MAX_D
     )
+
+
+def _fused_admm_eligible(qp: CondensedQP, z2: torch.Tensor) -> bool:
+    return get_config().fused_admm and z2.is_cuda and _fused_admm_fits(qp, z2)
 
 
 @matmul_precision_scope
@@ -152,7 +158,7 @@ def qp_solve(
     g2 = g.reshape(-1, D)
     z2 = z.reshape(-1, D)
     if _fused_admm_eligible(qp, z2):
-        zf = fused_admm(
+        zf = _fa.fused_admm(
             g2.contiguous(), z2.contiguous(), qp.solver.contiguous(),
             lo.contiguous(), hi.contiguous(),
             rho=float(qp.rho), alpha=float(alpha), iters=int(iters),

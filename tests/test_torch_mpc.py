@@ -221,6 +221,10 @@ def test_import_does_not_load_jax():
         "import sys\n"
         "import strided_tpu_torch, strided_tpu_torch.entry, strided_tpu_torch.bench\n"
         "import strided_tpu_torch.convert, strided_tpu_torch._build\n"
+        "import strided_tpu_torch.api, strided_tpu_torch.ops\n"
+        "from strided_tpu_torch.core import view, regularize, planner, broadcast, ewise\n"
+        "from strided_tpu_torch.core import lazy_expr, mapreduce, kernels_special\n"
+        "from strided_tpu_torch.core import stream_reduce, executor_cuda\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

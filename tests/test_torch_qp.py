@@ -174,3 +174,28 @@ def test_qp_solve_takes_loop_path_on_cpu():
     tqp.qp_solve(tq, torch.zeros((4, 12)), torch.as_tensor(U_MIN, dtype=torch.float32),
                  torch.as_tensor(U_MAX, dtype=torch.float32), iters=6)
     assert tfa.LAUNCHES == before
+
+
+def test_fused_admm_gate_respects_the_kernel_width():
+    """The kernel is instantiated for D <= MAX_D = 512. A wider QP (horizon
+    150: D = 600) must take the loop path, as the JAX package's scan does
+    for every D, instead of reaching the kernel and raising on the card. The
+    size check runs without a CUDA tensor."""
+    A, B, Q, R = _quad_data(dt=0.02)  # the controller's dt (entry.make_controller)
+    qps = {N: (jqp.build_condensed(jnp.asarray(A), jnp.asarray(B), Q, R, Q, N, 8.0),
+               tqp.build_condensed(torch.as_tensor(A.copy()), torch.as_tensor(B.copy()),
+                                   Q, R, Q, N, 8.0))
+           for N in (150, 50)}
+    jq, tq = qps[150]
+    assert not tq.use_chol and tq.N * tq.m == 600 > tfa.MAX_D
+    z = torch.zeros(4, 600)  # f32 iterates, the kernel's type
+    assert not tqp._fused_admm_fits(tq, z)
+    assert tqp._fused_admm_fits(qps[50][1], z[:, :200])
+    assert not tqp._fused_admm_eligible(qps[50][1], z[:, :200])  # a CPU tensor
+    x0 = np.random.default_rng(2).uniform(-0.3, 0.3, (5, 12))
+    U = tqp.qp_solve(tq, torch.as_tensor(x0), torch.as_tensor(U_MIN), torch.as_tensor(U_MAX),
+                     iters=6, alpha=1.6)
+    Uj = jqp.qp_solve(jq, jnp.asarray(x0), jnp.asarray(U_MIN), jnp.asarray(U_MAX),
+                      iters=6, alpha=1.6)
+    assert tuple(U.shape) == (5, 150, 4) and torch.isfinite(U).all()
+    np.testing.assert_allclose(U.numpy(), np.asarray(Uj), rtol=0, atol=1e-8)  # f64 loop paths
