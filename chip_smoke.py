@@ -37,7 +37,22 @@ Drives the port's main path, one closed-loop step of the scenario-batched
    (kernel, plain, plain, kernel), with GB/s; K2 also at 1024^2 and 2048^2,
    the data for re-setting the TPU-valued size gates; and the flagship
    through its entry point (``st.to_array((v + v.T) / 2)``, host work
-   included) against eager ``(a + a.T) / 2``.
+   included) against eager ``(a + a.T) / 2``;
+10. linalg at full size: ``mul`` f32 8192^2 through cuBLAS (equal to the
+    plain ``alpha * a @ b + beta * c`` under IEEE FP32, and within 1e-2 of
+    the f64 product: TF32 products would miss by ~4e-2), a transposed
+    operand and a bf16 ``mul`` (f32 product, one rounding) against their
+    plain counterparts, ``axpby(0.5, transpose(v), 0.5, v)`` at 8192^2
+    through K2 (record ``pair-kernel``, exact), the int32 generic ``mul`` at
+    512^3 with ``kernel_reductions`` off and on (exact, route recorded) and
+    ``v @ w``; K2's launches read for this phase alone; times of ``mul`` and
+    ``axpby`` against plain;
+11. the transpose-pair probes: ``exp_sym`` (every variant at 8192^2) and
+    ``exp_pair_rect`` (at 8064^2) through their ``main``, with the four probe
+    kernels' launches read for that run alone; each kernel at every tile
+    shape exactly equal to its plain version (NaN pattern included for
+    ``rect_pairs``) and timed against it in turns; both probe modules once
+    more as ``python -m``.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
 JSON object describing the kernels, then ``{"ok": true, "device": ...}``.
@@ -192,6 +207,8 @@ def main() -> None:
 
     wide_qp_check(dev)
     engine = engine_phases(dev, card)
+    linalg_phase(dev, card)
+    probes = probe_phases(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
@@ -202,7 +219,7 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": min(ms_k, ms_k2),
         "plain_ms": min(ms_p, ms_p2),
-    }, *engine]}))
+    }, *engine, *probes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -345,7 +362,6 @@ def engine_phases(dev, card):
     """Phases 8 and 9: the strided engine's main path and its three kernels.
     Returns the kernels' entries for the JSON line."""
     import strided_tpu_torch as st
-    from strided_tpu_torch.bench import cuda_ms
     from strided_tpu_torch.core import ewise, executor_cuda as ec
     from strided_tpu_torch.core import kernels_special as ks, lazy_expr as le
     from strided_tpu_torch.core import stream_reduce as sr
@@ -441,21 +457,15 @@ def engine_phases(dev, card):
     coverage_checks(dev, gen)
 
     # phase 9: each wrapper against its plain version, in turns
-    def turns(kernel, plain, reps):
-        k1, p1, p2, k2 = (cuda_ms(f, reps=reps) for f in (kernel, plain, plain, kernel))
-        return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
-
     def report(what, nbytes, times):
-        k, p, (k1, k2, p1, p2) = times
-        print(f"[9 times] {what}: kernel {k1:.4f}/{k2:.4f} ms ({nbytes / k / 1e6:.0f} GB/s), "
-              f"plain {p1:.4f}/{p2:.4f} ms ({nbytes / p / 1e6:.0f} GB/s) [{card}]")
+        _report(9, what, "GB/s", nbytes, times, card)
 
     pair_times = {}
     for n in (1024, 2048, 4000, 8192):
         a = randn(n, n)
         kw = dict(scale_mode="div", scale=2.0)
-        pair_times[n] = turns(lambda: ks.pair_axpby(a, **kw), lambda: ks.pair_reference(a, **kw),
-                              reps=50 if n >= 4000 else 200)
+        pair_times[n] = _turns(lambda: ks.pair_axpby(a, **kw), lambda: ks.pair_reference(a, **kw),
+                               reps=50 if n >= 4000 else 200)
         report(f"pair_axpby (a + a.T)/2 {n}^2 f32", 2 * 4 * n * n, pair_times[n])
     for n in (1024, 4000, 8192):  # through the entry point: host work included
         a = randn(n, n)
@@ -463,33 +473,33 @@ def engine_phases(dev, card):
         st.to_array((v + st.transpose(v)) / 2)
         report(f"end to end st.to_array((v + v.T) / 2) {n}^2 f32 "
                f"[{le.LAST_EXPR_DISPATCH}]", 2 * 4 * n * n,
-               turns(lambda: st.to_array((v + st.transpose(v)) / 2), lambda: (a + a.T) / 2,
-                     reps=50))
+               _turns(lambda: st.to_array((v + st.transpose(v)) / 2), lambda: (a + a.T) / 2,
+                      reps=50))
     a = randn(8192, 8192)
     ident = ewise.trace(lambda t: t, [torch.float32], out_dtype=torch.float32)
-    red_t = turns(lambda: sr.stream_reduce(a, ident, sr.RED_SUM),
-                  lambda: sr.stream_reduce_reference(a, ident, sr.RED_SUM), reps=50)
+    red_t = _turns(lambda: sr.stream_reduce(a, ident, sr.RED_SUM),
+                   lambda: sr.stream_reduce_reference(a, ident, sr.RED_SUM), reps=50)
     report("stream_reduce sum axis 0, 8192^2 f32", 4 * a.numel(), red_t)
     va = st.strided(a)
     out = st.strided(torch.empty(8192, 8192, device=dev))
     ins = [st.transpose(va)]
     plan = ec.make_plan(lambda t: t, None, None, out.shape, out, ins)
     tparents = [va.parent]
-    t_times = turns(lambda: ec.tile_executor(plan, out.parent, tparents),
-                    lambda: ec.tile_executor_reference(plan, out.parent, tparents), reps=50)
+    t_times = _turns(lambda: ec.tile_executor(plan, out.parent, tparents),
+                     lambda: ec.tile_executor_reference(plan, out.parent, tparents), reps=50)
     report("tile_executor transpose copy 8192^2 f32", 2 * 4 * a.numel(), t_times)
     wparents = [va.parent, st.strided(w).parent]
     plan_s = ec.make_plan(lambda p, q: p * 3 + q, None, None, out.shape, out,
                           [st.transpose(va), st.strided(w)])
     report("tile_executor smap(x*3 + y, v.T, w) 8192^2 f32", 3 * 4 * a.numel(),
-           turns(lambda: ec.tile_executor(plan_s, out.parent, wparents),
-                 lambda: ec.tile_executor_reference(plan_s, out.parent, wparents), reps=20))
+           _turns(lambda: ec.tile_executor(plan_s, out.parent, wparents),
+                  lambda: ec.tile_executor_reference(plan_s, out.parent, wparents), reps=20))
     vy = st.strided(y)
     ins4 = [st.permutedims(vy, perm)]
     plan4 = ec.make_plan(lambda t: t, None, None, out4.shape, out4, ins4)
     report(f"tile_executor permute {perm} 64x128x64x128 f32", 2 * 4 * y.numel(),
-           turns(lambda: ec.tile_executor(plan4, out4.parent, [vy.parent]),
-                 lambda: ec.tile_executor_reference(plan4, out4.parent, [vy.parent]), reps=50))
+           _turns(lambda: ec.tile_executor(plan4, out4.parent, [vy.parent]),
+                  lambda: ec.tile_executor_reference(plan4, out4.parent, [vy.parent]), reps=50))
     st.set_config(kernel_reductions=True)
     try:
         ov = st.broadcast_to(st.strided(old), (8192, 4096))
@@ -498,8 +508,8 @@ def engine_phases(dev, card):
     finally:
         st.set_config(kernel_reductions=old_cfg.kernel_reductions)
     report("tile_executor 3*old + sum axis 0, int32 8192x4096", 4 * xi.numel(),
-           turns(lambda: ec.tile_executor(planr, ov.parent, [xi.reshape(-1)]),
-                 lambda: ec.tile_executor_reference(planr, ov.parent, [xi.reshape(-1)]), reps=50))
+           _turns(lambda: ec.tile_executor(planr, ov.parent, [xi.reshape(-1)]),
+                  lambda: ec.tile_executor_reference(planr, ov.parent, [xi.reshape(-1)]), reps=50))
 
     def entry(name, replaces, times):
         return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{name}.cu",
@@ -509,6 +519,174 @@ def engine_phases(dev, card):
     return [entry("pair_axpby", "strided_tpu/core/kernels_special.py:147", pair_times[8192]),
             entry("stream_reduce", "strided_tpu/core/kernels_special.py:511", red_t),
             entry("tile_executor", "strided_tpu/core/executor_pallas.py:137", t_times)]
+
+
+def _turns(kernel, plain, reps, warmup=5):
+    """Kernel, plain, plain, kernel: ``(best kernel ms, best plain ms, all four)``."""
+    from strided_tpu_torch.bench import cuda_ms
+
+    k1, p1, p2, k2 = (cuda_ms(f, reps=reps, warmup=warmup) for f in (kernel, plain, plain, kernel))
+    return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+
+
+def _report(phase, what, unit, amount, times, card):
+    """One timing line; ``amount / ms / 1e6`` in ``unit`` (GB/s or GFLOP/s)."""
+    k, p, (k1, k2, p1, p2) = times
+    print(f"[{phase} times] {what}: kernel {k1:.4f}/{k2:.4f} ms ({amount / k / 1e6:.0f} {unit}), "
+          f"plain {p1:.4f}/{p2:.4f} ms ({amount / p / 1e6:.0f} {unit}) [{card}]")
+
+
+ATOL_MUL64 = 1e-2  # f32 mul 8192^2 vs f64: IEEE ~2e-3 at most, TF32 ~4e-2 typical
+
+
+def linalg_phase(dev, card) -> None:
+    """Phase 10: the linalg layer at full size, through its entry points."""
+    import strided_tpu_torch as st
+    from strided_tpu_torch import config
+    from strided_tpu_torch.core import executor_cuda as ec
+    from strided_tpu_torch.core import kernels_special as ks, lazy_expr as le
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, alpha, beta = 8192, 1.5, -0.5
+    a, b, c = (torch.randn(n, n, device=dev, generator=gen) for _ in range(3))
+    ieee = config.matmul_precision_scope
+
+    def check(what, got, want, limit=0.0):
+        torch.cuda.synchronize()
+        e = _max_err(got, want)
+        print(f"[10 linalg] {what}: |got - plain| {e:.3e} (limit {limit:g})")
+        if not e <= limit:
+            raise RuntimeError(f"{what}: off its plain counterpart by {e:.3e} > {limit:g}")
+
+    ks.LAUNCHES = ec.LAUNCHES = 0
+    mul = lambda A, B, C, **kw: st.materialize(st.mul(st.strided(C), A, B, **kw))  # noqa: E731
+    got = mul(st.strided(a), st.strided(b), c, alpha=alpha, beta=beta)
+    check("mul f32 8192^2 (cuBLAS)", got, ieee(lambda: alpha * (a @ b) + beta * c)())
+    want64 = alpha * (a.double() @ b.double()) + beta * c.double()
+    check("mul f32 8192^2 vs the f64 product (IEEE FP32, no TF32)", got.double(), want64,
+          ATOL_MUL64)
+    del want64
+    got = mul(st.transpose(st.strided(a)), st.strided(b), c, alpha=alpha, beta=beta)
+    want64 = alpha * (a.double().T @ b.double()) + beta * c.double()
+    check("mul f32 8192^2, transposed A, vs the f64 product", got.double(), want64, ATOL_MUL64)
+    check("mul f32 8192^2, transposed A, vs plain a.T @ b", got,
+          ieee(lambda: alpha * (a.T @ b) + beta * c)(), ATOL_MUL64)
+    del want64
+    a16, b16, c16 = a.bfloat16(), b.bfloat16(), c.bfloat16()
+    got = mul(st.strided(a16), st.strided(b16), c16, alpha=alpha, beta=beta)
+    if got.dtype != torch.bfloat16:
+        raise RuntimeError(f"bf16 mul returned {got.dtype}")
+    check("mul bf16 8192^2 (f32 product, one rounding)", got,
+          ieee(lambda: (alpha * (a16.float() @ b16.float()) + beta * c16).bfloat16())())
+    v = st.strided(a)
+    le.LAST_EXPR_DISPATCH = ""
+    got = st.materialize(st.axpby(0.5, st.transpose(v), 0.5, v))
+    if le.LAST_EXPR_DISPATCH != "pair-kernel":
+        raise RuntimeError(f"axpby went to {le.LAST_EXPR_DISPATCH!r}, expected 'pair-kernel'")
+    check("axpby(0.5, transpose(v), 0.5, v) 8192^2 [pair-kernel]", got,
+          ks.pair_reference(a, alpha=0.5, beta=0.5, plain_first=False))
+    got = st.materialize(st.strided(a) @ st.strided(b))
+    check("v @ w f32 8192^2", got, ieee(torch.matmul)(a, b))
+    m = 512
+    ai, bi, ci = (torch.randint(-9, 9, (m, m), device=dev, dtype=torch.int32, generator=gen)
+                  for _ in range(3))
+    want = 3 * (ai.unsqueeze(1) * bi.T.unsqueeze(0)).sum(-1, dtype=torch.int32) + 2 * ci
+    old_cfg = st.get_config()
+    try:
+        for k_red in (False, True):
+            st.set_config(kernel_reductions=k_red)
+            got = mul(st.strided(ai), st.strided(bi), ci, alpha=3, beta=2)
+            route = "tile executor K4" if ec.LAST_PLAN else "plain path"
+            check(f"generic mul int32 {m}^3, kernel_reductions {k_red} [{route}]", got, want)
+    finally:
+        st.set_config(kernel_reductions=old_cfg.kernel_reductions)
+    torch.cuda.synchronize()
+    print(f"[10 linalg] launches on the linalg path: pair_axpby {ks.LAUNCHES}, "
+          f"tile_executor {ec.LAUNCHES}")
+    if ks.LAUNCHES < 1:
+        raise RuntimeError("axpby did not launch K2 on the linalg path")
+
+    C = st.strided(c)
+    _report(10, "mul f32 8192^2 alpha=1.5 beta=-0.5 (entry point vs plain)", "GFLOP/s",
+            2 * n ** 3, _turns(lambda: st.mul(C, v, st.strided(b), alpha=alpha, beta=beta),
+                               ieee(lambda: alpha * (a @ b) + beta * c), reps=10, warmup=2), card)
+    _report(10, "axpby(0.5, transpose(v), 0.5, v) 8192^2 (entry point vs plain)", "GB/s",
+            2 * 4 * n * n, _turns(lambda: st.axpby(0.5, st.transpose(v), 0.5, v),
+                                  lambda: 0.5 * a.T + 0.5 * a, reps=50), card)
+
+
+def probe_phases(dev, card):
+    """Phase 11: the transpose-pair probes and their four kernels. Returns
+    the kernels' entries for the JSON line."""
+    import subprocess
+    import sys
+
+    from strided_tpu_torch.benchmarks import exp_pair_rect as er, exp_sym as es
+
+    for counts in (es.LAUNCHES, er.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    rcs = (es.main([]), er.main([]))  # one JSON line a variant
+    torch.cuda.synchronize()
+    launches = {**es.LAUNCHES, **er.LAUNCHES}
+    print(f"[11 probes] launches in the probes' run: {launches} [{card}]")
+    if rcs != (0, 0):
+        raise RuntimeError(f"a probe variant disagreed with its plain result (exit codes {rcs})")
+    for name, count in launches.items():
+        if count < 1:
+            raise RuntimeError(f"{name} was not launched by the probes")
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(8192, 8192, device=dev, generator=gen)
+    xr = torch.randn(er.N, er.N, device=dev, generator=gen)
+    nans = torch.full_like(xr, float("nan"))
+    out_k, out_p = nans.clone(), nans.clone()  # NaN-filled once, outside the timed loops
+    cases = [("transpose_tiles", f"{th}x{tw}", 2 * 4 * x.numel(),
+              lambda th=th, tw=tw: es.transpose_tiles(x, th, tw), lambda: es.transpose_reference(x))
+             for th, tw in ((32, 32), (64, 64), *es.RECT_TILES)]
+    cases += [("sym_two_read", f"{t}", 3 * 4 * x.numel(), lambda t=t: es.sym_two_read(x, t),
+               lambda: es.sym_reference(x)) for t in es.SQUARE_TILES]
+    for t in es.SQUARE_TILES:
+        for label, kw, plain in (("full", {}, lambda: es.sym_reference(x)),
+                                 ("copy", dict(do_transpose=False), x.clone),
+                                 ("full skipdiag", dict(skip_diag=True), lambda: es.sym_reference(x))):
+            cases.append(("pair_tiles", f"{t} {label}", 2 * 4 * x.numel(),
+                          lambda t=t, kw=kw: es.pair_tiles(x, t, **kw), plain))
+    for T in er.TILES:
+        nbytes = len(er.rect_worklist(er.N, T)) * 4 * T * 2 * T * 4
+        cases.append(("rect_pairs", f"{T}x{2 * T}", nbytes, lambda T=T: er.rect_pairs(xr, out_k, T)[0],
+                      lambda T=T: er.rect_pairs_reference(xr, out_p, T)[0]))
+    best, err = {}, {}
+    for name, shape, nbytes, kernel, plain in cases:
+        got, want = kernel().clone(), plain()
+        torch.cuda.synchronize()
+        e = _max_err(got, want)
+        print(f"[11 probes] {name} {shape}: |kernel - plain| {e:.3e} (limit 0)")
+        if e != 0.0:
+            raise RuntimeError(f"{name} {shape}: kernel off its plain version by {e:.3e}")
+        err[name] = max(err.get(name, 0.0), e)
+        times = _turns(kernel, plain, reps=20)
+        _report(11, f"{name} {shape}", "GB/s", nbytes, times, card)
+        if "copy" not in shape and (name not in best or times[0] < best[name][0]):
+            best[name] = times  # the JSON line: each kernel's fastest tile shape
+    for module in ("exp_sym", "exp_pair_rect"):
+        proc = subprocess.run([sys.executable, "-m", f"strided_tpu_torch.benchmarks.{module}"],
+                              capture_output=True, text=True, timeout=300)
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        print(f"[11 probes] python -m strided_tpu_torch.benchmarks.{module}: exit {proc.returncode}, "
+              f"{len(rows)} variants, all ok {all(r['ok'] for r in rows)}")
+        if proc.returncode != 0 or not rows or not all(r["ok"] for r in rows):
+            raise RuntimeError(f"{module} on its own failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+
+    def entry(name, source, replaces):
+        return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{source}.cu",
+                "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
+                "ms": best[name][0], "plain_ms": best[name][1]}
+
+    return [entry("transpose_tiles", "exp_sym", "benchmarks/exp_sym.py:43"),
+            entry("sym_two_read", "exp_sym", "benchmarks/exp_sym.py:63"),
+            entry("pair_tiles", "exp_sym", "benchmarks/exp_sym.py:222"),
+            entry("rect_pairs", "exp_pair_rect", "benchmarks/exp_pair_rect.py:110")]
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 
 Two slices are ported. The scenario-batched quadrotor MPC step: the models,
 the condensed-QP solver with its fused-ADMM CUDA kernel, and the
-closed-loop controller. And the strided engine: lazy strided views, lazy
-expressions, the fused map/broadcast/reduce engine, with its tile-pair
-(K2), stream-reduction (K3) and tile-executor (K4) CUDA kernels. The
-engine's linalg layer is not ported yet.
+closed-loop controller. And the whole strided engine: lazy strided views,
+lazy expressions, the fused map/broadcast/reduce engine with its tile-pair
+(K2), stream-reduction (K3) and tile-executor (K4) CUDA kernels, and the
+linalg layer (``mul``, ``@``, ``axpby``, ``contract``). The TPU round's
+probe scripts for the transpose-pair family are in ``benchmarks/``.
 """
 
 from . import config  # noqa: F401
@@ -57,4 +58,5 @@ from .core.mapreduce import (  # noqa: F401
 from .core.broadcast import sbroadcast, sbroadcast_into, StridedExpr  # noqa: F401
 from .api import strided_jit, maybe_strided, maybe_unstrided, to_array  # noqa: F401
 from .core.kernels_special import symmetrize, pair_axpby  # noqa: F401
+from .linalg import mul, matmul, axpy, axpby, lmul, rmul, scale_into, contract  # noqa: F401
 from . import ops  # noqa: F401

@@ -28,6 +28,11 @@ class Config:
     matmul_precision: str = "highest"
 
     # -- strided engine (core/) ------------------------------------------
+    # Send equal-dtype floating and complex ``linalg.mul`` to the vendor
+    # matmul (cuBLAS on the card, through torch.matmul); off, every ``mul``
+    # takes the generic stride-0 broadcast-reduce. The counterpart of
+    # ``use_mxu``.
+    use_blas: bool = True
     # Master toggle for the engine's CUDA kernels (K2 pair_axpby, K3
     # stream_reduce, K4 tile_executor); the analog of ``use_pallas``. Off,
     # every engine call takes the plain PyTorch path.

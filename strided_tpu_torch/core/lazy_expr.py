@@ -342,7 +342,8 @@ def _install_operators(cls):
 
 
 def _install_reductions(cls):
-    """``.sum/.prod/.max/.min/.mean`` (one fused map+reduce pass each)."""
+    """``.sum/.prod/.max/.min/.mean`` (one fused map+reduce pass each) and
+    ``@`` (``linalg.matmul``)."""
 
     def _method(name, reducer_name):
         def method(self, axis=None):
@@ -356,6 +357,19 @@ def _install_reductions(cls):
     for name, reducer in [("sum", "ssum"), ("prod", "sprod"), ("max", "smax"),
                           ("min", "smin"), ("mean", "smean")]:
         setattr(cls, name, _method(name, reducer))
+
+    def __matmul__(self, other):
+        from ..linalg import matmul
+
+        return matmul(self, other)
+
+    def __rmatmul__(self, other):
+        from ..linalg import matmul
+
+        return matmul(other, self)
+
+    cls.__matmul__ = __matmul__
+    cls.__rmatmul__ = __rmatmul__
 
 
 _install_operators(StridedExpr)

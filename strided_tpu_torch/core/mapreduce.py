@@ -25,7 +25,7 @@ import torch
 
 from .view import StridedView, StridedLayoutError, strided, broadcast_to
 from .regularize import materialize, scatter_into
-from .lazy_expr import StridedExpr, as_expr_parts
+from .lazy_expr import as_expr_parts
 from .ewise import result_dtype
 
 _dispatch_log = logging.getLogger("strided_tpu_torch.dispatch")
@@ -120,14 +120,6 @@ def _reduce_vals(op: Callable, vals: torch.Tensor, axes: Tuple[int, ...]) -> tor
     return v[..., 0]
 
 
-def _as_view(x) -> StridedView:
-    if isinstance(x, StridedView):
-        return x
-    if isinstance(x, StridedExpr):
-        return x.evaluate()
-    return strided(x)
-
-
 def fused_mapreduce(
     f: Callable,
     op: Optional[Callable],
@@ -142,8 +134,8 @@ def fused_mapreduce(
     where ``out`` has stride 0 and size > 1; ``op=None`` is a pure map.
     Returns ``out`` over its (functionally) updated parent."""
     dims = tuple(int(d) for d in dims)
-    out = _as_view(out)
-    ins = [_as_view(v) for v in ins]
+    out = strided(out)
+    ins = [strided(v) for v in ins]
     for v in ins:
         if tuple(v.shape) != dims:
             raise StridedLayoutError(f"input shape {v.shape} != iteration dims {dims}")
@@ -205,7 +197,7 @@ def map_into(out, f: Callable, *ins) -> StridedView:
     from .lazy_expr import flatten_operands, try_pattern_into
     from .broadcast import broadcast_views
 
-    out = _as_view(out)
+    out = strided(out)
     hit = try_pattern_into(out, f, ins)
     if hit is not None:
         return hit
@@ -248,19 +240,19 @@ def permutedims_into(out, src, perm) -> StridedView:
     """Out-of-place permute: a lazy permute, then a fused strided copy."""
     from .view import permutedims as _p
 
-    return copy_into(out, _p(_as_view(src), perm))
+    return copy_into(out, _p(strided(src), perm))
 
 
 def adjoint_into(out, src) -> StridedView:
     from .view import adjoint as _a
 
-    return copy_into(out, _a(_as_view(src)))
+    return copy_into(out, _a(strided(src)))
 
 
 def conj_into(out, src=None) -> StridedView:
     from .view import conj as _c
 
-    return copy_into(out, _c(_as_view(out if src is None else src)))
+    return copy_into(out, _c(strided(out if src is None else src)))
 
 
 def sreduce(f: Callable, op: Callable, v, init=None):
@@ -351,8 +343,8 @@ def sreduce_dims(f: Callable, op: Callable, v, axes, init=None) -> StridedView:
 
 def mapreducedim_into(f, op, initop, out, *ins) -> StridedView:
     """Raw engine entry with an explicit ``initop``."""
-    out = _as_view(out)
-    views = [_as_view(v) for v in ins]
+    out = strided(out)
+    views = [strided(v) for v in ins]
     dims = views[0].shape if views else out.shape
     for v in views:
         if v.shape != dims:

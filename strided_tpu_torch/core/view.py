@@ -155,7 +155,8 @@ def strided(x: Union[torch.Tensor, np.ndarray, StridedView, Any]) -> StridedView
     A non-contiguous numpy array is adopted the same way over its owning
     base buffer, so transposes, ``stride_tricks`` windows and negative-step
     slices keep their lazy layout; layouts that are not element-aligned
-    raise :class:`StridedLayoutError`."""
+    raise :class:`StridedLayoutError`. A lazy expression is evaluated into
+    a dense row-major view, as the reference does."""
     if isinstance(x, StridedView):
         return x
     if isinstance(x, np.ndarray) and not x.flags.c_contiguous and x.size > 0:
@@ -163,6 +164,10 @@ def strided(x: Union[torch.Tensor, np.ndarray, StridedView, Any]) -> StridedView
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x if x.flags.writeable else x.copy())
     elif not isinstance(x, torch.Tensor):
+        from .lazy_expr import StridedExpr
+
+        if isinstance(x, StridedExpr):
+            return x.evaluate()
         x = torch.as_tensor(x)
     shape = tuple(x.shape)
     if x.is_contiguous() or x.numel() == 0:

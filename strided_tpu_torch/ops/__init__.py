@@ -1,4 +1,4 @@
-"""Public op namespace of the strided engine (linalg is not ported yet)."""
+"""Public op namespace of the strided engine."""
 
 from ..core.view import (  # noqa: F401
     StridedView,
@@ -37,3 +37,4 @@ from ..core.broadcast import sbroadcast, sbroadcast_into  # noqa: F401
 from ..core.regularize import materialize  # noqa: F401
 from ..api import strided_jit, to_array  # noqa: F401
 from ..core.kernels_special import symmetrize, pair_axpby  # noqa: F401
+from ..linalg import mul, matmul, axpy, axpby, lmul, rmul, scale_into, contract  # noqa: F401

@@ -245,3 +245,27 @@ def test_at_set_and_add_match_jax():
     np.testing.assert_array_equal(treg.materialize(t3).numpy(), np.asarray(jreg.materialize(j3)))
     # the source view keeps its old parent: writes are functional
     np.testing.assert_array_equal(treg.materialize(tv).numpy(), a)
+
+
+EXPRS = {
+    "float": (np.float32, lambda pkg, v: v * 2 + 1),
+    "int": (np.int32, lambda pkg, v: v * 3 - 7),
+    "transposed": (np.float32, lambda pkg, v: pkg.transpose(v) * 0.5 + 2),
+    "transposed int": (np.int32, lambda pkg, v: pkg.transpose(v) - 4),
+}
+
+
+@pytest.mark.parametrize("wrap", ["strided", "as_view"])
+@pytest.mark.parametrize("case", sorted(EXPRS))
+def test_strided_of_an_expression_evaluates_it_like_jax(case, wrap):
+    """``strided(expr)`` and ``as_view(expr)`` evaluate the expression into
+    a dense row-major view, as the JAX package does (exact)."""
+    dtype, make = EXPRS[case]
+    a = (np.arange(12).reshape(3, 4) * (1 if dtype == np.int32 else 0.25)).astype(dtype)
+    jv, tv = _both(a)
+    jres = getattr(jst, wrap)(make(jst, jv))
+    tres = getattr(tst, wrap)(make(tst, tv))
+    assert isinstance(tres, TView)
+    assert treg.materialize(tres).numpy().dtype == np.asarray(jreg.materialize(jres)).dtype
+    _same_layout(jres, tres)
+    _same_values(jres, tres)
