@@ -52,10 +52,22 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     kernels' launches read for that run alone; each kernel at every tile
     shape exactly equal to its plain version (NaN pattern included for
     ``rect_pairs``) and timed against it in turns; both probe modules once
-    more as ``python -m``.
+    more as ``python -m``;
+12. the streaming-reduction and rank-4 reversal probes: ``exp_reduce`` (at
+    8192^2), ``exp_perm2``, ``exp_perm4`` and ``exp_perm_probe`` (at 64^4)
+    through their ``main``, with the four new kernels' launches (and
+    ``transpose_tiles``' for ``exp_perm4``'s 2-D transposes) read for that run
+    alone; ``stream_sum_slabs`` at every slab within K3's tolerance of the
+    plain and the f64 sum, and equal to ``a[0]`` with compute off; every
+    reversal variant (``rev4_tiles``, ``rev4_mma`` at both precisions,
+    ``rev4_async``, the plane copy) exactly equal to its plain version; each
+    timed against it in turns; the four modules once more as ``python -m``.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
-JSON object describing the kernels, then ``{"ok": true, "device": ...}``.
+JSON object describing the twelve kernels (each with its time, its plain
+version's, its bound on an H100 SXM from NVIDIA's data sheet, and the time
+of one PyTorch call computing the same function where there is one), then
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -68,6 +80,22 @@ import torch
 
 ATOL_KERNEL = 2e-4  # f32 summation order differs from cuBLAS; |g| reaches ~1.4e3
 ATOL_LOOP = 1e-3  # closed-loop states, kernel vs plain path, 50 steps (f32)
+# NVIDIA H100 SXM data sheet: HBM3 rate, FP32 off the tensor cores (TF32
+# fails K1's gate and mul's 1e-2 check, so it sets no bound), dense bf16 on
+# the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+
+
+def bound(nbytes: float, ops: float = 0.0, ops_per_s: float = FP32_OPS_PER_S) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes it must move (each input read once, each output written once) over
+    the HBM rate and its operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    if t_ops > t_bytes:
+        return {"bound_ms": t_ops, "bound_by": "operations"}
+    return {"bound_ms": t_bytes, "bound_by": "bytes"}
 
 
 def _admm_inputs(ctrl, x):
@@ -202,13 +230,19 @@ def main() -> None:
     kernel = lambda: fa.fused_admm(*args, **kw)
     plain = lambda: fa.fused_admm_reference(*args, **kw)
     ms_k, ms_p, ms_p2, ms_k2 = (timed(f, reps=100) for f in (kernel, plain, plain, kernel))
-    print(f"[6 times] fused_admm B={batch} D=200 iters=6: kernel {ms_k:.4f}/{ms_k2:.4f} ms, "
-          f"plain {ms_p:.4f}/{ms_p2:.4f} ms [{card}]")
+    D = args[0].shape[1]
+    # the products only: 2 * B * D^2 flops an iteration (the clip and the
+    # updates add ~2%); g, z0 and the result, S, lo and hi in f32
+    k1_bound = bound(4 * (3 * batch * D + D * D + 2 * D), 2 * iters * batch * D * D)
+    print(f"[6 times] fused_admm B={batch} D={D} iters=6: kernel {ms_k:.4f}/{ms_k2:.4f} ms, "
+          f"plain {ms_p:.4f}/{ms_p2:.4f} ms, bound {k1_bound['bound_ms']:.4f} ms "
+          f"({k1_bound['bound_by']}) [{card}]")
 
     wide_qp_check(dev)
     engine = engine_phases(dev, card)
     linalg_phase(dev, card)
     probes = probe_phases(dev, card)
+    last = reduce_perm_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
@@ -219,7 +253,9 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": min(ms_k, ms_k2),
         "plain_ms": min(ms_p, ms_p2),
-    }, *engine, *probes]}))
+        **k1_bound,
+        "library_ms": None,
+    }, *engine, *probes, *last]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -480,6 +516,8 @@ def engine_phases(dev, card):
     red_t = _turns(lambda: sr.stream_reduce(a, ident, sr.RED_SUM),
                    lambda: sr.stream_reduce_reference(a, ident, sr.RED_SUM), reps=50)
     report("stream_reduce sum axis 0, 8192^2 f32", 4 * a.numel(), red_t)
+    library = {"pair_axpby": None, "stream_reduce": _library("a.sum(0) 8192^2", lambda: a.sum(0)),
+               "tile_executor": _library("a.T.contiguous() 8192^2", lambda: a.T.contiguous())}
     va = st.strided(a)
     out = st.strided(torch.empty(8192, 8192, device=dev))
     ins = [st.transpose(va)]
@@ -511,14 +549,18 @@ def engine_phases(dev, card):
            _turns(lambda: ec.tile_executor(planr, ov.parent, [xi.reshape(-1)]),
                   lambda: ec.tile_executor_reference(planr, ov.parent, [xi.reshape(-1)]), reps=50))
 
-    def entry(name, replaces, times):
+    def entry(name, replaces, times, nbytes):
         return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-                "ms": times[0], "plain_ms": times[1]}
+                "ms": times[0], "plain_ms": times[1], **bound(nbytes),
+                "library_ms": library[name]}
 
-    return [entry("pair_axpby", "strided_tpu/core/kernels_special.py:147", pair_times[8192]),
-            entry("stream_reduce", "strided_tpu/core/kernels_special.py:511", red_t),
-            entry("tile_executor", "strided_tpu/core/executor_pallas.py:137", t_times)]
+    n2 = 8192 * 8192
+    return [entry("pair_axpby", "strided_tpu/core/kernels_special.py:147", pair_times[8192],
+                  2 * 4 * n2),
+            entry("stream_reduce", "strided_tpu/core/kernels_special.py:511", red_t,
+                  4 * n2 + 4 * 8192),
+            entry("tile_executor", "strided_tpu/core/executor_pallas.py:137", t_times, 2 * 4 * n2)]
 
 
 def _turns(kernel, plain, reps, warmup=5):
@@ -527,6 +569,16 @@ def _turns(kernel, plain, reps, warmup=5):
 
     k1, p1, p2, k2 = (cuda_ms(f, reps=reps, warmup=warmup) for f in (kernel, plain, plain, kernel))
     return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+
+
+def _library(what, call, reps=50) -> float:
+    """The time of one PyTorch call that computes a kernel's function: the
+    yardstick of the JSON line, used nowhere in the port."""
+    from strided_tpu_torch.bench import cuda_ms
+
+    ms = cuda_ms(call, reps=reps)
+    print(f"[library] {what}: {ms:.4f} ms")
+    return ms
 
 
 def _report(phase, what, unit, amount, times, card):
@@ -668,7 +720,7 @@ def probe_phases(dev, card):
         times = _turns(kernel, plain, reps=20)
         _report(11, f"{name} {shape}", "GB/s", nbytes, times, card)
         if "copy" not in shape and (name not in best or times[0] < best[name][0]):
-            best[name] = times  # the JSON line: each kernel's fastest tile shape
+            best[name] = (*times, nbytes)  # the JSON line: each kernel's fastest tile shape
     for module in ("exp_sym", "exp_pair_rect"):
         proc = subprocess.run([sys.executable, "-m", f"strided_tpu_torch.benchmarks.{module}"],
                               capture_output=True, text=True, timeout=300)
@@ -678,15 +730,144 @@ def probe_phases(dev, card):
         if proc.returncode != 0 or not rows or not all(r["ok"] for r in rows):
             raise RuntimeError(f"{module} on its own failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
 
+    # the bound counts each input element read once and each output written
+    # once: sym_two_read's second read of A is not work the function needs
+    need = {"transpose_tiles": 2 * 4 * x.numel(), "sym_two_read": 2 * 4 * x.numel(),
+            "pair_tiles": 2 * 4 * x.numel(), "rect_pairs": best["rect_pairs"][3]}
+    library = {"transpose_tiles": _library("x.T.contiguous() 8192^2", lambda: x.T.contiguous()),
+               "sym_two_read": None, "pair_tiles": None, "rect_pairs": None}
+
     def entry(name, source, replaces):
         return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-                "ms": best[name][0], "plain_ms": best[name][1]}
+                "ms": best[name][0], "plain_ms": best[name][1], **bound(need[name]),
+                "library_ms": library[name]}
 
     return [entry("transpose_tiles", "exp_sym", "benchmarks/exp_sym.py:43"),
             entry("sym_two_read", "exp_sym", "benchmarks/exp_sym.py:63"),
             entry("pair_tiles", "exp_sym", "benchmarks/exp_sym.py:222"),
             entry("rect_pairs", "exp_pair_rect", "benchmarks/exp_pair_rect.py:110")]
+
+
+REVERSAL_SOURCES = {  # kernel: TPU Pallas call it replaces (first of its family)
+    "rev4_tiles": "benchmarks/exp_perm2.py:40",
+    "rev4_mma": "benchmarks/exp_perm2.py:112",
+    "rev4_async": "benchmarks/exp_perm4.py:153",
+}
+
+
+def _reversal_kernel(name: str) -> str:
+    """The kernel a reversal probe variant runs, from its name."""
+    if name.startswith("mxu"):
+        return "rev4_mma"
+    return "rev4_async" if name.startswith("dma4d") else "rev4_tiles"
+
+
+def reduce_perm_phase(dev, card):
+    """Phase 12: the streaming-reduction probe (P3) and the rank-4 reversal
+    probes (P4-P6) with their four kernels. Returns the kernels' entries
+    for the JSON line."""
+    import subprocess
+    import sys
+
+    from strided_tpu_torch.benchmarks import exp_perm2, exp_perm4, exp_perm_probe
+    from strided_tpu_torch.benchmarks import exp_reduce as ere, exp_sym as es, perm_kernels as pk
+
+    scripts = (ere, exp_perm2, exp_perm4, exp_perm_probe)
+    for counts in (ere.LAUNCHES, pk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    t2d_before = es.LAUNCHES["transpose_tiles"]
+    rcs = tuple(m.main([]) for m in scripts)  # one JSON line a variant
+    torch.cuda.synchronize()
+    launches = {**ere.LAUNCHES, **pk.LAUNCHES}
+    t2d = es.LAUNCHES["transpose_tiles"] - t2d_before
+    print(f"[12 reduce/perm] launches in the probes' run: {launches}, transpose_tiles (P5 t2d) "
+          f"{t2d} [{card}]")
+    if rcs != (0,) * len(scripts):
+        raise RuntimeError(f"a probe variant disagreed with its plain result (exit codes {rcs})")
+    for name, count in {**launches, "transpose_tiles": t2d}.items():
+        if count < 1:
+            raise RuntimeError(f"{name} was not launched by the probes")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err, best = {}, {}
+
+    def keep(name, e, times):
+        err[name] = max(err.get(name, 0.0), e)
+        if name not in best or times[0] < best[name][0]:
+            best[name] = times  # the JSON line: each kernel's fastest form
+
+    # P3: every slab, summing (K3's tolerance, against plain and f64) and not
+    a = torch.randn(8192, 8192, device=dev, generator=gen)
+    for R, C in ere.SLABS:
+        got = ere.stream_sum_slabs(a, R, C)
+        e_plain, e64, tol = ere.sum_error(got, a)
+        print(f"[12 reduce/perm] stream_sum_slabs {R}x{C}: |kernel - plain| {e_plain:.3e}, "
+              f"|kernel - f64| {e64:.3e} (limit {tol:.3e})")
+        if not (e_plain <= tol and e64 <= tol):
+            raise RuntimeError(f"stream_sum_slabs {R}x{C} off the sum by {max(e_plain, e64):.3e}")
+        e = _max_err(ere.stream_sum_slabs(a, R, C, compute=False), a[0])
+        print(f"[12 reduce/perm] stream_sum_slabs {R}x{C} nocompute: |kernel - a[0]| {e:.3e} "
+              f"(limit 0)")
+        if e != 0.0:
+            raise RuntimeError(f"stream_sum_slabs {R}x{C} nocompute is not a[0]")
+        times = _turns(lambda R=R, C=C: ere.stream_sum_slabs(a, R, C), lambda: a.sum(0), reps=50)
+        _report(12, f"stream_sum_slabs {R}x{C} 8192^2 f32", "GB/s", 4 * a.numel(), times, card)
+        nc = _turns(lambda R=R, C=C: ere.stream_sum_slabs(a, R, C, compute=False),
+                    lambda: a[0].clone(), reps=50)
+        _report(12, f"stream_sum_slabs {R}x{C} nocompute (plain: a[0].clone())", "GB/s",
+                4 * a.numel(), nc, card)
+        keep("stream_sum_slabs", e_plain, times)
+    lib_sum = _library("a.sum(0) 8192^2", lambda: a.sum(0))
+    del a
+
+    # P4-P6: every reversal variant of the three scripts, exact
+    x = torch.randn(64, 64, 64, 64, device=dev, generator=gen)
+    nbytes = 2 * 4 * x.numel()
+    for script in (exp_perm2, exp_perm4, exp_perm_probe):
+        for name, (fn, plain) in script.variants().items():
+            if name == "plain" or name.startswith("t2d"):
+                continue  # the plain version itself; P1's transpose_tiles (phase 11)
+            kernel = _reversal_kernel(name)
+            e = _max_err(fn(x), plain(x))
+            torch.cuda.synchronize()
+            what = f"{kernel} {script.__name__.rsplit('.', 1)[1]}.{name}"
+            print(f"[12 reduce/perm] {what}: |kernel - plain| {e:.3e} (limit 0)")
+            if e != 0.0:
+                raise RuntimeError(f"{what}: kernel off its plain version by {e:.3e}")
+            times = _turns(lambda fn=fn: fn(x), lambda plain=plain: plain(x), reps=20)
+            _report(12, f"{what} 64^4 f32", "GB/s", nbytes, times, card)
+            if not name.startswith(("nocompute", "mxu_default")):
+                keep(kernel, e, times)
+            else:
+                err[kernel] = max(err.get(kernel, 0.0), e)
+    lib_rev = _library("x.permute(3, 2, 1, 0).contiguous() 64^4",
+                       lambda: x.permute(3, 2, 1, 0).contiguous())
+
+    for script in scripts:
+        module = script.__name__
+        proc = subprocess.run([sys.executable, "-m", module], capture_output=True, text=True,
+                              timeout=300)
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        print(f"[12 reduce/perm] python -m {module}: exit {proc.returncode}, {len(rows)} variants, "
+              f"all ok {all(r['ok'] for r in rows)}")
+        if proc.returncode != 0 or not rows or not all(r["ok"] for r in rows):
+            raise RuntimeError(f"{module} on its own failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+
+    def entry(name, source, replaces, work, library):
+        return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{source}.cu",
+                "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
+                "ms": best[name][0], "plain_ms": best[name][1], **work, "library_ms": library}
+
+    # the identity product: 2 * 16 flops an element (one k-tile of 16) in
+    # each of three bf16 passes, on the tensor cores
+    mma_work = bound(nbytes, 3 * 2 * 16 * x.numel(), BF16_TENSOR_OPS_PER_S)
+    return [entry("stream_sum_slabs", "exp_reduce", "benchmarks/exp_reduce.py:49",
+                  bound(4 * 8192 * 8192 + 4 * 8192), lib_sum),
+            *(entry(k, "exp_perm", REVERSAL_SOURCES[k],
+                    mma_work if k == "rev4_mma" else bound(nbytes), lib_rev)
+              for k in ("rev4_tiles", "rev4_mma", "rev4_async"))]
 
 
 if __name__ == "__main__":

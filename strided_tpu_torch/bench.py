@@ -46,7 +46,7 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def mpc_accuracy(device="cpu", batch: int = 64, horizon: int = 50):
+def mpc_accuracy(device="cuda", batch: int = 64, horizon: int = 50):
     """Accuracy of the headline configuration (ADMM-6, rho=8, f32) against
     the same over-relaxed ADMM run to convergence in f64 numpy on the same
     QP data. Returns ``(dev_first, dev_plan, u_scale)``: worst deviation of

@@ -19,7 +19,7 @@ QP_ARRAYS = ("A", "B", "Su", "Sx", "H", "M", "K_lqr", "solver")
 MPC_ARRAYS = ("x_eq", "u_eq", "u_min", "u_max")
 
 
-def linear_mpc_from_numpy(d: dict, device="cpu", dtype=torch.float32) -> LinearMPC:
+def linear_mpc_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> LinearMPC:
     """``d`` maps the names in ``QP_ARRAYS`` and ``MPC_ARRAYS`` to arrays,
     and ``rho``, ``N``, ``n``, ``m``, ``use_chol``, ``admm_iters`` (and
     optionally ``constrained``, default True) to scalars. Arrays are copied into

@@ -15,7 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .view import StridedView, StridedLayoutError, strided, broadcast_to
+from .view import StridedView, StridedLayoutError, broadcast_to, held_device, strided
 from .mapreduce import fused_mapreduce
 from .regularize import materialize
 from .lazy_expr import (StridedExpr, broadcast_shape, flatten_operands, _install_operators,
@@ -55,7 +55,7 @@ def sbroadcast(f: Callable, *args) -> StridedView:
     and scalar arguments (scalars are embedded in the closure)."""
     g, views = flatten_operands(f, args)
     if not views:
-        return strided(torch.as_tensor(f(*args)))
+        return strided(f(*args))
     shape = _broadcast_shape(*[v.shape for v in views])
     bviews = broadcast_views(shape, views)
     out = _empty(shape, result_dtype(g, [v.dtype for v in views]), views[0])
@@ -69,7 +69,7 @@ def sbroadcast_into(out, f: Callable, *args) -> StridedView:
     of a pattern-matching lazy expression reach K2."""
     from .lazy_expr import try_pattern_into
 
-    out = out if isinstance(out, StridedView) else strided(out)
+    out = strided(out, held_device(*args))
     hit = try_pattern_into(out, f, args)
     if hit is not None:
         return hit

@@ -19,7 +19,7 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .view import StridedView, strided, row_major_strides
+from .view import StridedView, held_device, row_major_strides, strided
 
 __all__ = ["StridedExpr", "flatten_operands", "as_expr_parts", "identity_f",
            "try_pattern_expr", "try_pattern_into"]
@@ -48,6 +48,7 @@ def flatten_operands(f: Callable, args: Sequence) -> Tuple[Callable, List[Stride
     embedded and child expressions applied, one closure for the tree."""
     leaves: List[StridedView] = []
     getters = []
+    dev = held_device(*args)
     for a in args:
         if isinstance(a, StridedExpr):
             start = len(leaves)
@@ -59,7 +60,7 @@ def flatten_operands(f: Callable, args: Sequence) -> Tuple[Callable, List[Stride
             leaves.append(a)
             getters.append(lambda vals, i=len(leaves) - 1: vals[i])
         elif isinstance(a, (torch.Tensor, np.ndarray)) and getattr(a, "ndim", 0) > 0:
-            leaves.append(strided(a))
+            leaves.append(strided(a, dev))
             getters.append(lambda vals, i=len(leaves) - 1: vals[i])
         else:  # Python / 0-d scalar: embedded in the closure
             getters.append(lambda vals, a=a: a)

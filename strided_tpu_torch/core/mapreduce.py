@@ -23,7 +23,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from .view import StridedView, StridedLayoutError, strided, broadcast_to
+from .view import StridedView, StridedLayoutError, broadcast_to, held_device, strided
 from .regularize import materialize, scatter_into
 from .lazy_expr import as_expr_parts
 from .ewise import result_dtype
@@ -134,8 +134,9 @@ def fused_mapreduce(
     where ``out`` has stride 0 and size > 1; ``op=None`` is a pure map.
     Returns ``out`` over its (functionally) updated parent."""
     dims = tuple(int(d) for d in dims)
-    out = strided(out)
-    ins = [strided(v) for v in ins]
+    dev = held_device(out, *ins)
+    out = strided(out, dev)
+    ins = [strided(v, dev) for v in ins]
     for v in ins:
         if tuple(v.shape) != dims:
             raise StridedLayoutError(f"input shape {v.shape} != iteration dims {dims}")
@@ -197,7 +198,7 @@ def map_into(out, f: Callable, *ins) -> StridedView:
     from .lazy_expr import flatten_operands, try_pattern_into
     from .broadcast import broadcast_views
 
-    out = strided(out)
+    out = strided(out, held_device(*ins))
     hit = try_pattern_into(out, f, ins)
     if hit is not None:
         return hit
@@ -240,19 +241,19 @@ def permutedims_into(out, src, perm) -> StridedView:
     """Out-of-place permute: a lazy permute, then a fused strided copy."""
     from .view import permutedims as _p
 
-    return copy_into(out, _p(strided(src), perm))
+    return copy_into(out, _p(strided(src, held_device(out)), perm))
 
 
 def adjoint_into(out, src) -> StridedView:
     from .view import adjoint as _a
 
-    return copy_into(out, _a(strided(src)))
+    return copy_into(out, _a(strided(src, held_device(out))))
 
 
 def conj_into(out, src=None) -> StridedView:
     from .view import conj as _c
 
-    return copy_into(out, _c(strided(out if src is None else src)))
+    return copy_into(out, _c(strided(out if src is None else src, held_device(out))))
 
 
 def sreduce(f: Callable, op: Callable, v, init=None):
@@ -343,8 +344,9 @@ def sreduce_dims(f: Callable, op: Callable, v, axes, init=None) -> StridedView:
 
 def mapreducedim_into(f, op, initop, out, *ins) -> StridedView:
     """Raw engine entry with an explicit ``initop``."""
-    out = strided(out)
-    views = [strided(v) for v in ins]
+    dev = held_device(out, *ins)
+    out = strided(out, dev)
+    views = [strided(v, dev) for v in ins]
     dims = views[0].shape if views else out.shape
     for v in views:
         if v.shape != dims:

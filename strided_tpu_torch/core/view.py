@@ -146,34 +146,54 @@ def _flat_storage(t: torch.Tensor) -> torch.Tensor:
     return t.as_strided((n,), (1,), 0)
 
 
-def strided(x: Union[torch.Tensor, np.ndarray, StridedView, Any]) -> StridedView:
+def strided(x: Union[torch.Tensor, np.ndarray, StridedView, Any], device=None) -> StridedView:
     """Wrap an array as a :class:`StridedView`.
 
     A contiguous tensor wraps with row-major strides over ``t.reshape(-1)``
     (no copy). A non-contiguous tensor is ADOPTED: its own ``stride()`` and
     ``storage_offset()`` become the view's metadata over its whole storage.
-    A non-contiguous numpy array is adopted the same way over its owning
-    base buffer, so transposes, ``stride_tricks`` windows and negative-step
-    slices keep their lazy layout; layouts that are not element-aligned
-    raise :class:`StridedLayoutError`. A lazy expression is evaluated into
-    a dense row-major view, as the reference does."""
+    A tensor or a view keeps its own device; ``device`` is not read for it.
+
+    A numpy array, a Python scalar or a sequence goes to ``device``, the card
+    (``"cuda"``) unless one is given, as the reference puts it on its default
+    device. A non-contiguous numpy array is adopted the same way over its
+    owning base buffer, so transposes, ``stride_tricks`` windows and
+    negative-step slices keep their lazy layout (without a copy on the CPU);
+    layouts that are not element-aligned raise :class:`StridedLayoutError`.
+    A lazy expression is evaluated into a dense row-major view, as the
+    reference does."""
     if isinstance(x, StridedView):
         return x
-    if isinstance(x, np.ndarray) and not x.flags.c_contiguous and x.size > 0:
-        return _adopt_numpy(x)
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(x if x.flags.writeable else x.copy())
-    elif not isinstance(x, torch.Tensor):
+    if not isinstance(x, torch.Tensor):
         from .lazy_expr import StridedExpr
 
         if isinstance(x, StridedExpr):
             return x.evaluate()
-        x = torch.as_tensor(x)
+        device = torch.device("cuda" if device is None else device)
+        if isinstance(x, np.ndarray) and not x.flags.c_contiguous and x.size > 0:
+            return _adopt_numpy(x, device)
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x if x.flags.writeable else x.copy()).to(device)
+        else:
+            x = torch.as_tensor(x, device=device)
     shape = tuple(x.shape)
     if x.is_contiguous() or x.numel() == 0:
         return StridedView(x.reshape(-1), shape, row_major_strides(shape), 0, False)
     return StridedView(_flat_storage(x), shape, tuple(x.stride()),
                        x.storage_offset(), False)
+
+
+def held_device(*xs) -> Union[torch.device, None]:
+    """The device of the first of ``xs`` that already lies on one (a tensor,
+    a view, or a lazy expression over views), else None: the device an
+    engine call gives the numpy and scalar operands it wraps."""
+    for x in xs:
+        if isinstance(x, (torch.Tensor, StridedView)):
+            return x.device
+        leaves = getattr(x, "leaves", None)
+        if leaves:
+            return leaves[0].device
+    return None
 
 
 def _adopt_layout(x: np.ndarray):
@@ -212,10 +232,10 @@ def _adopt_layout(x: np.ndarray):
     return strides_el, root, offset
 
 
-def _adopt_numpy(x: np.ndarray) -> StridedView:
+def _adopt_numpy(x: np.ndarray, device: torch.device) -> StridedView:
     strides_el, root, offset = _adopt_layout(x)
     flat = root.reshape(-1) if root.flags.c_contiguous else root.reshape(-1, order="F")
-    parent = torch.from_numpy(flat if flat.flags.writeable else flat.copy())
+    parent = torch.from_numpy(flat if flat.flags.writeable else flat.copy()).to(device)
     return StridedView(parent, tuple(x.shape), strides_el, offset, False)
 
 

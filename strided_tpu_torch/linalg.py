@@ -25,7 +25,7 @@ import numbers
 import torch
 
 from .config import get_config, matmul_precision_scope
-from .core.view import StridedView, StridedLayoutError, strided
+from .core.view import StridedView, StridedLayoutError, held_device, strided
 from .core.regularize import materialize, scatter_into
 from .core.mapreduce import fused_mapreduce
 from .core.broadcast import sbroadcast_into
@@ -104,28 +104,29 @@ def lmul(alpha, v) -> StridedView:
 def scale_into(dst, alpha, src) -> StridedView:
     """``dst .= alpha .* src``. A lazy-transposed ``src`` stays on the
     generic path: the reference's policy for the single-term family."""
-    dst = strided(dst)
+    dst = strided(dst, held_device(src))
+    src = strided(src, dst.device)
     if _is_static_one(alpha):
-        return sbroadcast_into(dst, lambda x: x, strided(src))
-    return sbroadcast_into(dst, lambda x: alpha * x, strided(src))
+        return sbroadcast_into(dst, lambda x: x, src)
+    return sbroadcast_into(dst, lambda x: alpha * x, src)
 
 
 def axpy(alpha, x, y) -> StridedView:
     """``y .= alpha*x + y``; a lazy-transposed square ``x`` over ``y``
     takes the pair route."""
-    y = strided(y)
+    y = strided(y, held_device(x))
     if _is_static_zero(alpha):
         return y
     hit = _pair_route(y, alpha, x, 1.0, y)
     if hit is not None:
         return hit
-    return sbroadcast_into(y, lambda a, b: alpha * a + b, strided(x), y)
+    return sbroadcast_into(y, lambda a, b: alpha * a + b, strided(x, y.device), y)
 
 
 def axpby(alpha, x, beta, y) -> StridedView:
     """``y .= alpha*x + beta*y``; a lazy-transposed square ``x`` over ``y``
     takes the pair route, exactly like ``alpha*x.T + beta*y``."""
-    y = strided(y)
+    y = strided(y, held_device(x))
     if _is_static_one(beta):
         return axpy(alpha, x, y)
     if _is_static_zero(beta):
@@ -133,7 +134,7 @@ def axpby(alpha, x, beta, y) -> StridedView:
     hit = _pair_route(y, alpha, x, beta, y)
     if hit is not None:
         return hit
-    return sbroadcast_into(y, lambda a, b: alpha * a + beta * b, strided(x), y)
+    return sbroadcast_into(y, lambda a, b: alpha * a + beta * b, strided(x, y.device), y)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +154,8 @@ def _blas_eligible(*dtypes) -> bool:
 def mul(C, A, B, alpha=1, beta=0) -> StridedView:
     """``C = alpha * A @ B + beta * C`` with lazy transpose/conj operands;
     returns ``C`` over its new parent."""
-    C, A, B = strided(C), strided(A), strided(B)
+    dev = held_device(C, A, B)
+    C, A, B = strided(C, dev), strided(A, dev), strided(B, dev)
     if A.ndim != 2 or B.ndim != 2 or C.ndim != 2:
         raise StridedLayoutError("mul expects rank-2 views")
     m, ka = A.shape
@@ -217,7 +219,8 @@ def _mul_generic(C, A, B, alpha, beta) -> StridedView:
 def contract(subscripts: str, *operands, alpha=1) -> torch.Tensor:
     """Tensor contraction (einsum) over lazy strided-view operands, in their
     promoted dtype, f32 in IEEE FP32."""
-    arrays = [materialize(strided(o)) for o in operands]
+    dev = held_device(*operands)
+    arrays = [materialize(strided(o, dev)) for o in operands]
     rdt = functools.reduce(torch.promote_types, [a.dtype for a in arrays])
     out = torch.einsum(subscripts, *[a.to(rdt) for a in arrays])
     if not _is_static_one(alpha):
@@ -227,7 +230,8 @@ def contract(subscripts: str, *operands, alpha=1) -> torch.Tensor:
 
 def matmul(A, B, alpha=1) -> StridedView:
     """Allocating ``alpha * A @ B`` in the promoted dtype."""
-    A, B = strided(A), strided(B)
+    dev = held_device(A, B)
+    A, B = strided(A, dev), strided(B, dev)
     rdt = torch.promote_types(A.dtype, B.dtype)
     C = strided(torch.zeros((A.shape[0], B.shape[1]), dtype=rdt, device=A.device))
     return mul(C, A, B, alpha=alpha, beta=0)

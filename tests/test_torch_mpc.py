@@ -133,7 +133,7 @@ def test_entry_step_matches_jax():
     want = np.asarray(jfn(xj))
 
     tmodel = stt.quadrotor()
-    tc = linear_mpc_from_numpy(linear_mpc_to_numpy(jc))
+    tc = linear_mpc_from_numpy(linear_mpc_to_numpy(jc), device="cpu")
     got = tmodel.step(xt, tc.control(xt)[0], 0.02)
     assert got.shape == (256, 12) and got.dtype == torch.float32
     # f32 summation order only. At N=50 the ADMM output agrees to 1e-4 (|g|
@@ -152,7 +152,7 @@ def test_entry_step_matches_jax():
 
 def test_closed_loop_matches_jax_f64():
     jc = _jax_ctrl(10, jnp.float64, iters=30)
-    tc = linear_mpc_from_numpy(linear_mpc_to_numpy(jc), dtype=torch.float64)
+    tc = linear_mpc_from_numpy(linear_mpc_to_numpy(jc), device="cpu", dtype=torch.float64)
     x0 = np.random.default_rng(4).uniform(-0.3, 0.3, (3, 12))
     xs_j, us_j = jmpc.closed_loop(jc, jm.quadrotor(), jnp.asarray(x0), steps=20, dt=0.05)
     xs_t, us_t = stt.closed_loop(tc, stt.quadrotor(), torch.as_tensor(x0), steps=20, dt=0.05)
@@ -229,3 +229,20 @@ def test_import_does_not_load_jax():
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
+NO_CUDA = (AssertionError, RuntimeError)  # torch's refusal: a CPU build asserts, else it raises
+
+
+def test_mpc_entry_points_default_to_the_card():
+    """``linear_mpc_from_numpy`` and ``mpc_accuracy`` run on the card unless
+    asked for the CPU: without CUDA they raise torch's own error, never
+    fall back to a silent CPU run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    d = linear_mpc_to_numpy(_jax_ctrl(5, jnp.float32, iters=6))
+    with pytest.raises(NO_CUDA, match="CUDA|NVIDIA"):
+        linear_mpc_from_numpy(d)
+    with pytest.raises(NO_CUDA, match="CUDA|NVIDIA"):
+        tbench.mpc_accuracy(batch=2, horizon=5)
+    assert linear_mpc_from_numpy(d, device="cpu").qp.H.device.type == "cpu"

@@ -173,7 +173,7 @@ def test_out_of_bounds_view_raises_like_jax():
 def test_numpy_adoption_matches_jax(make):
     base = np.arange(48, dtype=np.float64).reshape(6, 8)
     x = make(base)
-    jv, tv = jst.strided(x), tst.strided(x)
+    jv, tv = jst.strided(x), tst.strided(x, device="cpu")
     _same_layout(jv, tv)
     _same_values(jv, tv)
     assert jst.isstrided(x) and tst.isstrided(x)
@@ -269,3 +269,33 @@ def test_strided_of_an_expression_evaluates_it_like_jax(case, wrap):
     assert treg.materialize(tres).numpy().dtype == np.asarray(jreg.materialize(jres)).dtype
     _same_layout(jres, tres)
     _same_values(jres, tres)
+
+
+NO_CUDA = (AssertionError, RuntimeError)  # torch's refusal: a CPU build asserts, else it raises
+
+
+def test_strided_puts_numpy_on_the_card_unless_asked():
+    """A numpy array, scalar or sequence goes to the card unless ``device``
+    is given (without CUDA: torch's own error); a tensor or view keeps its
+    device; ``device="cpu"`` adopts numpy without a copy; an engine call
+    gives a numpy operand the device of the tensor it already holds."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    for x in (np.ones((3, 4)), a.T, [1.0, 2.0], 3.0):
+        with pytest.raises(NO_CUDA, match="CUDA|NVIDIA"):
+            tst.strided(x)
+    v = tst.strided(a, device="cpu")
+    assert v.device.type == "cpu" and v.parent.data_ptr() == a.ctypes.data  # no copy
+    assert tst.strided(torch.from_numpy(a), device="cuda").device.type == "cpu"
+    assert tst.strided(v, device="cuda") is v
+    y = tst.strided(np.ones((3, 4), np.float32), device="cpu")
+    got = treg.materialize(tst.axpby(2.0, a, 1.0, y))
+    np.testing.assert_array_equal(got.numpy(), 2 * a + 1)
+    got = treg.materialize(tst.axpby(2.0, a, 0.5, y))
+    np.testing.assert_array_equal(got.numpy(), 2 * a + 0.5)
+    got = treg.materialize(tst.mul(tst.strided(np.zeros((3, 3), np.float32), device="cpu"), a, a.T))
+    np.testing.assert_array_equal(got.numpy(), a @ a.T)
+    out = tst.strided(torch.zeros(4, 3))
+    np.testing.assert_array_equal(treg.materialize(tst.permutedims_into(out, a, (1, 0))).numpy(), a.T)
+    np.testing.assert_array_equal(treg.materialize(tst.smap(lambda p, q: p + q, y, a)).numpy(), a + 1)
