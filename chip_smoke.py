@@ -7,7 +7,9 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 (horizon 50, D = N*m = 200, ADMM-6 at rho=8, f32, batch 16384). Phases:
 
 1. device: a CUDA device is required; prints its name and power limit;
-2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc;
+2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc, and
+   prints ptxas's registers, stack frame and spills of every K3 and K4
+   kernel;
 3. kernel vs plain: the fused-ADMM kernel against its plain PyTorch version
    on the same inputs (main-path QP at B in {16384, 33, 31, 1}; random QPs
    at D=12 and D=400), and both against the same iterations in f64;
@@ -31,13 +33,24 @@ Drives the port's main path, one closed-loop step of the scenario-batched
    ``out = 3*old + sum over axis 0`` through the tile executor. Each checks
    the dispatch record, and the result against the kernel's plain PyTorch
    version on the same inputs (bit-exact, except f32 sums: 1e-6 * rows *
-   max|a|, the summation order differs); the launch counts are read for
-   this phase alone;
+   max|a|, the summation order differs); the launch counts, and K3's and
+   K4's by the kernel each launcher reports it ran, are read for this phase
+   alone; then coverage off the main path: every program op through K4
+   (f32, bf16), bodies wider than ``ewise.CREG`` registers through K4's
+   scalar interpreter, K4's per-element maps; K3 with every fold on f32,
+   bf16 and int32 rows that are and are not whole 16-byte runs, and bodies
+   of 1, 3 and 5 registers, f32- and int32-valued;
 9. engine times: each kernel's wrapper against its plain version, in turns
-   (kernel, plain, plain, kernel), with GB/s; K2 also at 1024^2 and 2048^2,
-   the data for re-setting the TPU-valued size gates; and the flagship
-   through its entry point (``st.to_array((v + v.T) / 2)``, host work
-   included) against eager ``(a + a.T) / 2``;
+   (kernel, plain, plain, kernel; with the one PyTorch call that computes
+   the same function inside the turns where there is one), with GB/s; K2
+   also at 1024^2 and 2048^2, the data for re-setting the TPU-valued size
+   gates; the flagship through its entry point (``st.to_array((v + v.T) /
+   2)``, host work included) against eager ``(a + a.T) / 2``; K3's f32, max,
+   int32, bf16 and program cases and K4's maps on the staged 8192^2 layout
+   (the instruction ladder, bf16, int32 ``where``, the scalar interpreter),
+   each checked against its plain version first, and timed eagerly (every
+   ``ms`` of the JSON line is an eager time) and as device time alone
+   (``bench.graph_ms``, CUDA graphs; the ``device_*`` keys);
 10. linalg at full size: ``mul`` f32 8192^2 through cuBLAS (equal to the
     plain ``alpha * a @ b + beta * c`` under IEEE FP32, and within 1e-2 of
     the f64 product: TF32 products would miss by ~4e-2), a transposed
@@ -135,6 +148,7 @@ def main() -> None:
     t = time.perf_counter()
     _build.load_library()
     print(f"[2 build] nvcc sm_90a: {time.perf_counter() - t:.1f} s")
+    ptxas_report()
 
     rho, alpha, iters = 8.0, 1.6, 6
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
@@ -295,6 +309,11 @@ def _max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (g - w).nan_to_num().abs().max().item()
 
 
+def wide_body(a, b):
+    """A body of 5 live values, more than ewise.CREG: the scalar interpreter."""
+    return (a + 1) * ((a + 2) * ((a + 3) * (b + 4))) + a * b
+
+
 def coverage_checks(dev, gen) -> None:
     """Phase 8, off the main path (not counted): the kernels on cases the
     main path does not reach, each against its plain version: K4 on every
@@ -312,7 +331,8 @@ def coverage_checks(dev, gen) -> None:
     finally:
         st.set_config(map_min_elements=old_cfg.map_min_elements,
                       min_kernel_elements=old_cfg.min_kernel_elements,
-                      kernel_reductions=old_cfg.kernel_reductions)
+                      kernel_reductions=old_cfg.kernel_reductions,
+                      aligned_maps=old_cfg.aligned_maps)
     torch.cuda.synchronize()
 
 
@@ -333,7 +353,8 @@ def _coverage(dev, gen) -> None:
            "min max": lambda a, b: torch.minimum(a, b) - torch.maximum(a, b * 0.5),
            "-|x| + y": lambda a, b: -abs(a) + b, "where": lambda a, b: torch.where(a < 0, -a, b),
            "cast": lambda a, b: a.to(torch.int32) * 2 + b.float(),
-           "int ops": lambda a, b: (a * 10).int() % 7 - (b * 10).int() * 3}
+           "int ops": lambda a, b: (a * 10).int() % 7 - (b * 10).int() * 3,
+           "wide (scalar interpreter)": wide_body}
     for dtype in (torch.float32, torch.bfloat16):
         xs, ys = x.to(dtype), y.to(dtype)
         xv, yv = st.transpose(st.strided(xs)), st.strided(ys.T.contiguous())
@@ -352,6 +373,21 @@ def _coverage(dev, gen) -> None:
             print(f"[8 coverage] tile_executor {name} {dtype}: |kernel - plain| {e:.3e} (limit {lim:g})")
             if not e <= lim:
                 raise RuntimeError(f"coverage {name} {dtype}: {e:.3e} > {lim:g}")
+    # maps with no transposed read (one element a thread, 8 at a time), with
+    # a body that fits ewise.CREG registers and a wider one
+    st.set_config(aligned_maps=True)
+    row = st.broadcast_to(st.strided(y[:1]), (1000, 3000))
+    for name, f in (("x*3 + row", lambda a, b: a * 3 + b), ("wide", wide_body)):
+        out = st.strided(torch.empty(1000, 3000, device=dev))
+        plan = ec.make_plan(f, None, None, (1000, 3000), out, [st.strided(x), row])
+        if plan is None or plan.tdim >= 0:
+            raise RuntimeError(f"coverage {name}: not a per-element tile-executor map")
+        pars = [x.reshape(-1), y[:1].reshape(-1)]
+        k = ec.tile_executor(plan, out.parent, pars)
+        e = _max_err(k, ec.tile_executor_reference(plan, out.parent, pars))
+        print(f"[8 coverage] tile_executor per-element map {name}: |kernel - plain| {e:.3e} (limit 0)")
+        if e != 0.0:
+            raise RuntimeError(f"coverage per-element map {name}: off by {e:.3e}")
     # a two-input reduction: out = max(old - 1, max over axis 0 of x * y)
     st.set_config(kernel_reductions=True)
     old = torch.randn(1, 3000, device=dev, generator=gen)
@@ -374,17 +410,7 @@ def _coverage(dev, gen) -> None:
     print(f"[8 coverage] tile_executor complete int32 sum: |kernel - plain| {e:.3e} (limit 0)")
     if e != 0.0:
         raise RuntimeError("complete reduction off its plain version")
-    for dtype, f in ((torch.float32, lambda t: t * 0.5 + 1), (torch.bfloat16, lambda t: t)):
-        a = x.to(dtype)
-        prog = ewise.trace(f, [dtype], out_dtype=dtype)
-        for red in (sr.RED_MAX, sr.RED_SUM):
-            k, p = sr.stream_reduce(a, prog, red), sr.stream_reduce_reference(a, prog, red)
-            e = _max_err(k, p)
-            lim = 0.0 if red == sr.RED_MAX else 1e-6 * a.shape[0] * 4 * x.abs().max().item() + (
-                2 * torch.finfo(dtype).eps * p.abs().max().item() if dtype == torch.bfloat16 else 0)
-            print(f"[8 coverage] stream_reduce red={red} {dtype}: |kernel - plain| {e:.3e} (limit {lim:g})")
-            if not e <= lim:
-                raise RuntimeError(f"stream_reduce coverage off by {e:.3e}")
+    _k3_coverage(dev, gen)
     a, c = torch.randn(2, 3001, 3001, device=dev, generator=gen)
     k = ks.pair_axpby(a, c, alpha=2.0, beta=-3.0, scale_mode="mul", scale=0.25)
     p = ks.pair_reference(a, c, alpha=2.0, beta=-3.0, scale_mode="mul", scale=0.25)
@@ -392,6 +418,62 @@ def _coverage(dev, gen) -> None:
     print(f"[8 coverage] pair_axpby distinct 3001^2: |kernel - plain| {e:.3e} (limit 0)")
     if e != 0.0:
         raise RuntimeError("pair_axpby distinct buffers off its plain version")
+
+
+def _k3_coverage(dev, gen) -> None:
+    """Phase 8, K3 off the main path: every fold on f32, bf16 and int32
+    operands whose rows are whole 16-byte runs (3000 columns: 8 columns a
+    thread) and whose rows are not (3001: one column a thread); then bodies
+    of 1, 3 and 5 registers (the amortized interpreter's register files of
+    2 and 4, and the scalar interpreter), f32- and int32-valued. Each against its
+    plain version, with the kernel the launcher reports it ran. Exact for
+    min, max and int32 (wrapping, so any order); a float sum within 1e-6 *
+    rows * max|f(a)| and a product within 1e-6 * rows * max|result| (another
+    order), plus one bf16 rounding of the result for bf16."""
+    from strided_tpu_torch.core import ewise, stream_reduce as sr
+
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    folds = {"sum": sr.RED_SUM, "prod": sr.RED_PROD, "min": sr.RED_MIN, "max": sr.RED_MAX}
+    z = torch.randn(1000, 3001, device=dev, generator=gen)
+
+    def check(what, a, prog, red, path):
+        before = dict(sr.PATHS)
+        k, p = sr.stream_reduce(a, prog, red), sr.stream_reduce_reference(a, prog, red)
+        torch.cuda.synchronize()
+        ran = [q for q in sr.PATHS if sr.PATHS[q] != before[q]]
+        e = _max_err(k, p)
+        lim = 0.0
+        if prog.out_dtype != i32 and red in (sr.RED_SUM, sr.RED_PROD):
+            vals = ewise.evaluate(prog, [a]).float().abs().max().item()
+            lim = 1e-6 * a.shape[0] * (vals if red == sr.RED_SUM else p.float().abs().max().item())
+            if prog.out_dtype == bf16:
+                lim += 2 * torch.finfo(bf16).eps * p.float().abs().max().item()
+        print(f"[8 coverage] stream_reduce {what} [{', '.join(ran)}]: |kernel - plain| {e:.3e} "
+              f"(limit {lim:g})")
+        if not e <= lim or ran != [path]:
+            raise RuntimeError(f"stream_reduce {what}: off by {e:.3e} (limit {lim:g}), or ran {ran}")
+
+    for cols in (3000, 3001):
+        for fold, red in folds.items():
+            # factors near 1 keep a float product of 1000 rows finite; odd
+            # ints keep an int32 product from collapsing to 0
+            zf = (1 + z[:, :cols] / 64) if fold == "prod" else z[:, :cols] * 4
+            for a in (zf.contiguous(), zf.to(bf16), (z[:, :cols] * 4).int() * 2 + 1):
+                prog = ewise.trace(lambda t: t, [a.dtype], out_dtype=a.dtype)
+                check(f"{fold} identity 1000x{cols} {a.dtype}", a, prog, red, "identity")
+    bodies = [("t*3 + 1", lambda t: t * 3 + 1, "amortized"),
+              ("(t+1)*(t+2) + t*3", lambda t: (t + 1) * (t + 2) + t * 3, "amortized"),
+              ("t*0.5 + 1", lambda t: t * 0.5 + 1, "amortized"),
+              ("wide", lambda t: wide_body(t, t), "scalar")]
+    for dtype, a in ((f32, z * 4), (i32, (z * 10).int())):
+        for name, f, path in bodies:
+            if dtype == i32 and name == "t*0.5 + 1":
+                continue  # a float result
+            prog = ewise.trace(f, [dtype], out_dtype=dtype)
+            n_reg = ewise.compact(prog).n_reg
+            for fold in ("sum", "max"):
+                check(f"{fold} of {name} ({n_reg} registers) 1000x3001 {dtype}", a, prog,
+                      folds[fold], path)
 
 
 def engine_phases(dev, card):
@@ -421,6 +503,9 @@ def engine_phases(dev, card):
             raise RuntimeError(f"{what}: dispatch went to {record!r}, expected {want!r}")
 
     ks.LAUNCHES = sr.LAUNCHES = ec.LAUNCHES = 0
+    for paths in (sr.PATHS, ec.MAP_PATHS):
+        for k in paths:
+            paths[k] = 0
     # K2, through the lazy expression: the reference's flagship and family
     pairs = [(4000, torch.float32, "(v + v.T) / 2"), (8192, torch.float32, "(v + v.T) / 2"),
              (4000, torch.float32, "3*v + 2*v.T"), (4000, torch.float32, "v - v.T"),
@@ -485,7 +570,10 @@ def engine_phases(dev, card):
     torch.cuda.synchronize()
     launches = {"pair_axpby": ks.LAUNCHES, "stream_reduce": sr.LAUNCHES,
                 "tile_executor": ec.LAUNCHES}
-    print(f"[8 engine] launches on the main path: {launches}")
+    print(f"[8 engine] launches on the main path: {launches}; K3 by path {sr.PATHS}, "
+          f"K4 maps by interpreter {ec.MAP_PATHS}")
+    if sr.PATHS["identity"] < 1 or ec.MAP_PATHS["amortized"] < 1:
+        raise RuntimeError("the main path did not run K3's identity or K4's amortized map")
     for name, count in launches.items():
         if count < 1:
             raise RuntimeError(f"{name} was not launched on the engine's main path")
@@ -501,8 +589,10 @@ def engine_phases(dev, card):
         a = randn(n, n)
         kw = dict(scale_mode="div", scale=2.0)
         pair_times[n] = _turns(lambda: ks.pair_axpby(a, **kw), lambda: ks.pair_reference(a, **kw),
-                               reps=50 if n >= 4000 else 200)
-        report(f"pair_axpby (a + a.T)/2 {n}^2 f32", 2 * 4 * n * n, pair_times[n])
+                               reps=50 if n >= 4000 else 200,
+                               library=(lambda: torch.lerp(a, a.T, 0.5)) if n == 8192 else None)
+        report(f"pair_axpby (a + a.T)/2 {n}^2 f32 (one call: torch.lerp(a, a.T, 0.5))",
+               2 * 4 * n * n, pair_times[n])
     for n in (1024, 4000, 8192):  # through the entry point: host work included
         a = randn(n, n)
         v = st.strided(a)
@@ -511,27 +601,8 @@ def engine_phases(dev, card):
                f"[{le.LAST_EXPR_DISPATCH}]", 2 * 4 * n * n,
                _turns(lambda: st.to_array((v + st.transpose(v)) / 2), lambda: (a + a.T) / 2,
                       reps=50))
-    a = randn(8192, 8192)
-    ident = ewise.trace(lambda t: t, [torch.float32], out_dtype=torch.float32)
-    red_t = _turns(lambda: sr.stream_reduce(a, ident, sr.RED_SUM),
-                   lambda: sr.stream_reduce_reference(a, ident, sr.RED_SUM), reps=50)
-    report("stream_reduce sum axis 0, 8192^2 f32", 4 * a.numel(), red_t)
-    library = {"pair_axpby": None, "stream_reduce": _library("a.sum(0) 8192^2", lambda: a.sum(0)),
-               "tile_executor": _library("a.T.contiguous() 8192^2", lambda: a.T.contiguous())}
-    va = st.strided(a)
-    out = st.strided(torch.empty(8192, 8192, device=dev))
-    ins = [st.transpose(va)]
-    plan = ec.make_plan(lambda t: t, None, None, out.shape, out, ins)
-    tparents = [va.parent]
-    t_times = _turns(lambda: ec.tile_executor(plan, out.parent, tparents),
-                     lambda: ec.tile_executor_reference(plan, out.parent, tparents), reps=50)
-    report("tile_executor transpose copy 8192^2 f32", 2 * 4 * a.numel(), t_times)
-    wparents = [va.parent, st.strided(w).parent]
-    plan_s = ec.make_plan(lambda p, q: p * 3 + q, None, None, out.shape, out,
-                          [st.transpose(va), st.strided(w)])
-    report("tile_executor smap(x*3 + y, v.T, w) 8192^2 f32", 3 * 4 * a.numel(),
-           _turns(lambda: ec.tile_executor(plan_s, out.parent, wparents),
-                  lambda: ec.tile_executor_reference(plan_s, out.parent, wparents), reps=20))
+    red_t, k3_cases = reduce_times(dev, gen, report)
+    map_t, t_times = map_times(dev, gen, report, w)
     vy = st.strided(y)
     ins4 = [st.permutedims(vy, perm)]
     plan4 = ec.make_plan(lambda t: t, None, None, out4.shape, out4, ins4)
@@ -545,30 +616,201 @@ def engine_phases(dev, card):
                              [st.strided(xi)])
     finally:
         st.set_config(kernel_reductions=old_cfg.kernel_reductions)
-    report("tile_executor 3*old + sum axis 0, int32 8192x4096", 4 * xi.numel(),
-           _turns(lambda: ec.tile_executor(planr, ov.parent, [xi.reshape(-1)]),
-                  lambda: ec.tile_executor_reference(planr, ov.parent, [xi.reshape(-1)]), reps=50))
+    kernel = lambda: ec.tile_executor(planr, ov.parent, [xi.reshape(-1)])  # noqa: E731
+    plain = lambda: ec.tile_executor_reference(planr, ov.parent, [xi.reshape(-1)])  # noqa: E731
+    report("tile_executor 3*old + sum axis 0, int32 8192x4096, called eagerly", 4 * xi.numel(),
+           _turns(kernel, plain, reps=50))
+    report("tile_executor 3*old + sum axis 0, int32 8192x4096, device time (CUDA graph)",
+           4 * xi.numel(), _turns(kernel, plain, reps=20, graph=True))
 
     def entry(name, replaces, times, nbytes):
+        eager, device = times
         return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-                "ms": times[0], "plain_ms": times[1], **bound(nbytes),
-                "library_ms": library[name]}
+                "ms": eager[0], "plain_ms": eager[1], **bound(nbytes),
+                "library_ms": eager[3] if len(eager) > 3 else None,
+                **({} if device is None else {
+                    "device_ms": device[0], "device_plain_ms": device[1],
+                    "device_library_ms": device[3] if len(device) > 3 else None})}
 
     n2 = 8192 * 8192
-    return [entry("pair_axpby", "strided_tpu/core/kernels_special.py:147", pair_times[8192],
+    smap_bound = bound(3 * 4 * n2)
+    map_e, map_d = map_t
+    return [entry("pair_axpby", "strided_tpu/core/kernels_special.py:147", (pair_times[8192], None),
                   2 * 4 * n2),
-            entry("stream_reduce", "strided_tpu/core/kernels_special.py:511", red_t,
-                  4 * n2 + 4 * 8192),
-            entry("tile_executor", "strided_tpu/core/executor_pallas.py:137", t_times, 2 * 4 * n2)]
+            {**entry("stream_reduce", "strided_tpu/core/kernels_special.py:511", red_t,
+                     4 * n2 + 4 * 8192), "cases": k3_cases},
+            {**entry("tile_executor", "strided_tpu/core/executor_pallas.py:137", t_times,
+                     2 * 4 * n2),
+             "map_ms": map_e[0], "map_plain_ms": map_e[1], "map_bound_ms": smap_bound["bound_ms"],
+             "map_library_ms": map_e[3], "map_device_ms": map_d[0],
+             "map_device_plain_ms": map_d[1], "map_device_library_ms": map_d[3]}]
 
 
-def _turns(kernel, plain, reps, warmup=5):
-    """Kernel, plain, plain, kernel: ``(best kernel ms, best plain ms, all four)``."""
-    from strided_tpu_torch.bench import cuda_ms
+def reduce_times(dev, gen, report, n=8192):
+    """Phase 9, K3: the f32 axis-0 sum (the JSON line's case), the axis-0
+    max, the int32, bf16 and f32-with-a-program sums, each checked against
+    its plain version, then timed in turns against it and, where one call
+    computes the same function, that call: called eagerly (as every kernel
+    of the JSON line is timed) and as device time alone through CUDA graphs,
+    with the wrapper's host time a call beside them. Returns the f32 sum's
+    eager and device times and every case's kernel ms both ways."""
+    from strided_tpu_torch.core import ewise, stream_reduce as sr
 
-    k1, p1, p2, k2 = (cuda_ms(f, reps=reps, warmup=warmup) for f in (kernel, plain, plain, kernel))
-    return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+    a = torch.randn(n, n, device=dev, generator=gen)
+    a16 = a.bfloat16()
+    ai = torch.randint(-9, 9, (n, n // 2), device=dev, dtype=torch.int32, generator=gen)
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    ident = {d: ewise.trace(lambda t: t, [d], out_dtype=d) for d in (f32, bf16, i32)}
+    affine = ewise.trace(lambda t: t * 0.5 + 1, [f32], out_dtype=f32)
+    cases = [  # (name, operand, program, fold, bytes, one call or None)
+        (f"sum axis 0, {n}^2 f32", a, ident[f32], sr.RED_SUM, 4 * a.numel(), lambda: a.sum(0)),
+        (f"max axis 0, {n}^2 f32", a, ident[f32], sr.RED_MAX, 4 * a.numel(), lambda: a.amax(0)),
+        (f"sum axis 0, int32 {n}x{n // 2}", ai, ident[i32], sr.RED_SUM, 4 * ai.numel(),
+         lambda: ai.sum(0, dtype=torch.int32)),
+        (f"sum axis 0, {n}^2 bf16", a16, ident[bf16], sr.RED_SUM, 2 * a16.numel(),
+         lambda: a16.sum(0)),
+        (f"sum axis 0 of t*0.5 + 1, {n}^2 f32", a, affine, sr.RED_SUM, 4 * a.numel(), None),
+    ]
+    out, first = {}, None
+    for name, x, prog, red, nbytes, lib in cases:
+        k, p = sr.stream_reduce(x, prog, red), sr.stream_reduce_reference(x, prog, red)
+        e = _max_err(k, p)
+        # exact for max and int32; a float sum within 1e-6 * rows * max|f(a)|
+        # (another order), and a bf16 result within one rounding of it
+        lim = 0.0
+        if red != sr.RED_MAX and x.dtype != torch.int32:
+            lim = 1e-6 * x.shape[0] * ewise.evaluate(prog, [x]).float().abs().max().item()
+            if x.dtype == bf16:
+                lim += 2 * torch.finfo(bf16).eps * p.float().abs().max().item()
+        print(f"[9 stream_reduce] {name}: |kernel - plain| {e:.3e} (limit {lim:g})")
+        if not e <= lim:
+            raise RuntimeError(f"stream_reduce {name}: off its plain version by {e:.3e}")
+        kernel = lambda x=x, prog=prog, red=red: sr.stream_reduce(x, prog, red)  # noqa: E731
+        plain = lambda x=x, prog=prog, red=red: sr.stream_reduce_reference(x, prog, red)  # noqa: E731
+        eager = _turns(kernel, plain, reps=100, library=lib)
+        device = _turns(kernel, plain, reps=20, library=lib, graph=True)
+        host = _host_ms(kernel)
+        what = f"stream_reduce {name}, bound {bound(nbytes)['bound_ms']:.4f} ms"
+        report(f"{what}, called eagerly (the wrapper's host time {host:.4f} ms a call)", nbytes,
+               eager)
+        report(f"{what}, device time (CUDA graph)", nbytes, device)
+        out[name] = {"ms": eager[0], "device_ms": device[0], "host_ms": host}
+        first = first or (eager, device)
+    return first, out
+
+
+def map_times(dev, gen, report, w, n=8192):
+    """Phase 9, K4's maps on the staged two-input 8192^2 layout (v.T, w):
+    the instruction ladder (bodies of 0, 1, 3 and 9 instructions), a bf16
+    and an int32 ``where`` map, the wide body (more than ewise.CREG
+    registers: the scalar interpreter), each exact against its plain version
+    and timed in turns, eagerly and as device time (CUDA graphs); then the
+    transposed copy. Returns the smap's times (with ``torch.add(w, a.T,
+    alpha=3)`` as its one call) and the copy's (with ``a.T.contiguous()``),
+    each as (eager, device)."""
+    import strided_tpu_torch as st
+    from strided_tpu_torch.core import ewise, executor_cuda as ec
+
+    a = torch.randn(n, n, device=dev, generator=gen)
+    bodies = [  # (name, f, instructions after compaction)
+        ("p (0 instructions)", lambda p, q: p),
+        ("p + q (1)", lambda p, q: p + q),
+        ("p*3 + q (2: the smap)", lambda p, q: p * 3 + q),
+        ("(p*3 + q) * 0.5 (3)", lambda p, q: (p * 3 + q) * 0.5),
+        ("((p*3 + q)*p - q*2) * (|q| + 1) + 1 (9)",
+         lambda p, q: ((p * 3 + q) * p - q * 2) * (abs(q) + 1) + 1),
+        ("wide: (p+1)*((p+2)*((p+3)*(q+4))) + p*q (scalar interpreter)",
+         lambda p, q: (p + 1) * ((p + 2) * ((p + 3) * (q + 4))) + p * q),
+    ]
+    cases = [(name, f, a, w, torch.float32) for name, f in bodies]
+    cases += [("bf16 p*3 + q", lambda p, q: p * 3 + q, a.bfloat16(), w.bfloat16(), torch.bfloat16),
+              ("int32 where(p < q, p*2, q)", lambda p, q: torch.where(p < q, p * 2, q),
+               (a * 100).int(), (w * 100).int(), torch.int32)]
+    smap, ladder = None, []
+    for name, f, x, y, dt in cases:
+        out = st.strided(torch.empty(n, n, device=dev, dtype=dt))
+        vx, vy = st.strided(x), st.strided(y)
+        plan = ec.make_plan(f, None, None, out.shape, out, [st.transpose(vx), vy])
+        if plan is None or plan.tdim < 0:
+            raise RuntimeError(f"map {name}: not a staged tile-executor map")
+        body = ewise.compact(plan.body)
+        path = "amortized" if body.n_reg <= ewise.CREG else "scalar"
+        parents = [vx.parent, vy.parent]
+        before = dict(ec.MAP_PATHS)
+        k = ec.tile_executor(plan, out.parent, parents)
+        e = _max_err(k, ec.tile_executor_reference(plan, out.parent, parents))
+        torch.cuda.synchronize()
+        ran = [p for p in ec.MAP_PATHS if ec.MAP_PATHS[p] != before[p]]
+        print(f"[9 tile_executor] map {name}: {len(body.instrs)} instructions, {body.n_reg} "
+              f"registers, {ran} interpreter: |kernel - plain| {e:.3e} (limit 0)")
+        if e != 0.0 or ran != [path]:
+            raise RuntimeError(f"map {name}: off its plain version by {e:.3e}, or path {ran}")
+        lib = (lambda: torch.add(y, x.T, alpha=3)) if "smap" in name else None
+        kernel = lambda: ec.tile_executor(plan, out.parent, parents)  # noqa: E731
+        plain = lambda: ec.tile_executor_reference(plan, out.parent, parents)  # noqa: E731
+        eager = _turns(kernel, plain, reps=10, library=lib)
+        device = _turns(kernel, plain, reps=10, library=lib, graph=True)
+        nbytes = 3 * x.element_size() * x.numel()
+        what = f"tile_executor map {name} [{path}], bound {bound(nbytes)['bound_ms']:.4f} ms"
+        report(f"{what}, called eagerly", nbytes, eager)
+        report(f"{what}, device time (CUDA graph)", nbytes, device)
+        if dt == torch.float32 and path == "amortized":
+            ladder.append((len(body.instrs), device[0]))
+        if "smap" in name:
+            smap = (eager, device)
+    if len(ladder) > 1:
+        xs, ys = np.array([c for c, _ in ladder], float), np.array([t for _, t in ladder])
+        slope, icpt = np.polyfit(xs, ys, 1)
+        print(f"[9 tile_executor] ladder (instructions, device ms): {ladder}; least squares "
+              f"{icpt:.4f} ms + {slope:.4f} ms per instruction")
+    out = st.strided(torch.empty(n, n, device=dev))
+    va = st.strided(a)
+    plan = ec.make_plan(lambda t: t, None, None, out.shape, out, [st.transpose(va)])
+    kernel = lambda: ec.tile_executor(plan, out.parent, [va.parent])  # noqa: E731
+    plain = lambda: ec.tile_executor_reference(plan, out.parent, [va.parent])  # noqa: E731
+    lib = lambda: a.T.contiguous()  # noqa: E731
+    copy = (_turns(kernel, plain, reps=50, library=lib),
+            _turns(kernel, plain, reps=20, library=lib, graph=True))
+    report("tile_executor transpose copy 8192^2 f32 (one call: a.T.contiguous()), called eagerly",
+           2 * 4 * a.numel(), copy[0])
+    report("tile_executor transpose copy 8192^2 f32, device time (CUDA graph)",
+           2 * 4 * a.numel(), copy[1])
+    return smap, copy
+
+
+def _turns(kernel, plain, reps, warmup=5, library=None, graph=False):
+    """Kernel, plain, plain, kernel: ``(best kernel ms, best plain ms, all
+    four)``. With ``library`` (one PyTorch call computing the same function,
+    the JSON line's yardstick) the turns are kernel, plain, library,
+    library, plain, kernel, and its best time is a fourth item. ``graph``:
+    device time alone (``bench.graph_ms``), else host and device
+    (``bench.cuda_ms``)."""
+    from strided_tpu_torch.bench import cuda_ms, graph_ms
+
+    def ms(f):
+        return graph_ms(f, reps=reps) if graph else cuda_ms(f, reps=reps, warmup=warmup)
+
+    if library is None:
+        k1, p1, p2, k2 = (ms(f) for f in (kernel, plain, plain, kernel))
+        return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+    k1, p1, l1, l2, p2, k2 = (ms(f) for f in (kernel, plain, library, library, plain, kernel))
+    return min(k1, k2), min(p1, p2), (k1, k2, p1, p2), min(l1, l2)
+
+
+def _host_ms(fn, reps=200) -> float:
+    """Host milliseconds a call of ``fn()`` takes to enqueue its work (no
+    synchronization inside the loop): where this is longer than the device
+    time, an eager caller waits for the host."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def _library(what, call, reps=50) -> float:
@@ -583,9 +825,33 @@ def _library(what, call, reps=50) -> float:
 
 def _report(phase, what, unit, amount, times, card):
     """One timing line; ``amount / ms / 1e6`` in ``unit`` (GB/s or GFLOP/s)."""
-    k, p, (k1, k2, p1, p2) = times
+    k, p, (k1, k2, p1, p2) = times[:3]
+    lib = f", one PyTorch call {times[3]:.4f} ms" if len(times) > 3 else ""
     print(f"[{phase} times] {what}: kernel {k1:.4f}/{k2:.4f} ms ({amount / k / 1e6:.0f} {unit}), "
-          f"plain {p1:.4f}/{p2:.4f} ms ({amount / p / 1e6:.0f} {unit}) [{card}]")
+          f"plain {p1:.4f}/{p2:.4f} ms ({amount / p / 1e6:.0f} {unit}){lib} [{card}]")
+
+
+def ptxas_report(sources=("stream_reduce", "tile_executor")) -> None:
+    """Registers, stack frame and spills of each kernel of ``sources``, from
+    the ptxas report (``-Xptxas -v``) the build keeps beside the library."""
+    import re
+
+    from strided_tpu_torch import _build
+
+    from pathlib import Path
+
+    path = Path(_build.load_library()._name).with_suffix(".log")
+    log = path.read_text() if path.is_file() else ""
+    for section in re.split(r"\n(?=\S*nvcc )", log):
+        src = next((x for x in sources if section.split("\n", 1)[0].endswith(f"/{x}.cu")), None)
+        if src is None:
+            continue
+        for w in [ln for ln in section.splitlines() if "warning" in ln][:5]:
+            print(f"[ptxas] {src}.cu: {w.strip()[-200:]}")
+        for m in re.finditer(r"Compiling entry function '(\w+)'.*?Function properties for \w+\n"
+                             r"\s*(.*?)\n.*?Used (\d+) registers", section, re.S):
+            name, frame, regs = m.groups()
+            print(f"[ptxas] {src}.cu {name}: {regs} registers, {frame.strip()}")
 
 
 ATOL_MUL64 = 1e-2  # f32 mul 8192^2 vs f64: IEEE ~2e-3 at most, TF32 ~4e-2 typical

@@ -46,6 +46,33 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn()``: ``reps`` calls captured
+    in one CUDA graph, replayed ``replays`` times between CUDA events. No
+    host work lies between the kernels, so this is the device's time alone
+    (``cuda_ms`` also holds the host's, where the host is the slower)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture requires
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def mpc_accuracy(device="cuda", batch: int = 64, horizon: int = 50):
     """Accuracy of the headline configuration (ADMM-6, rho=8, f32) against
     the same over-relaxed ADMM run to convergence in f64 numpy on the same

@@ -28,18 +28,23 @@ on the CPU torch divides), and a power with a scalar exponent of 2, 3,
 from __future__ import annotations
 
 import ctypes
+import functools
 import numbers
-from dataclasses import dataclass
+import struct
+from dataclasses import dataclass, replace
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["Ineligible", "Instr", "Program", "trace", "evaluate", "result_dtype",
-           "CProgram", "to_c", "MAX_IN", "MAX_INSTR"]
+           "CProgram", "to_c", "compact", "operand_slots", "MAX_IN", "MAX_INSTR", "CREG",
+           "IMM"]
 
 MAX_IN = 8  # leaves (csrc/ewise.cuh: EW_MAX_IN)
 MAX_INSTR = 32  # instructions (EW_MAX_INSTR)
+CREG = 4  # registers of the amortized interpreter (EW_CREG)
+IMM = -1  # an operand that is the instruction's own constant (EW_IMM)
 
 # type codes (EW_F32 ...)
 F32, BF16, I32, BOOL = 0, 1, 2, 3
@@ -63,10 +68,11 @@ class Instr:
     a: int = 0
     b: int = 0
     c: int = 0  # WHERE's third operand; CAST's source type
-    cf: float = 0.0  # float constant (CONST, DIVC's reciprocal, POWC's exponent)
+    cf: float = 0.0  # float constant (CONST, DIVC's reciprocal, POWC's exponent, IMM)
     ci: int = 0  # int constant
     cv: object = None  # the constant as written (plain evaluator)
     scalar: bool = False  # CONST from a Python scalar operand (not a fill)
+    dst: int = 0  # result register (compacted programs; traced ones use n_in + index)
 
 
 @dataclass(frozen=True)
@@ -75,6 +81,7 @@ class Program:
     instrs: Tuple[Instr, ...]
     out: int
     out_dtype: torch.dtype
+    n_reg: int = 0  # registers of a compacted program (0: traced, one per value)
 
 
 _BINARY = {
@@ -360,6 +367,72 @@ def evaluate(prog: Program, leaves: Sequence[torch.Tensor], like=None) -> torch.
     return out
 
 
+_FOLD_BINARY = (ADD, SUB, MUL, DIV, POW, MOD, MIN, MAX) + _CMP
+
+
+def operand_slots(ins: Instr) -> Tuple[str, ...]:
+    """The fields of ``ins`` that name registers (or IMM)."""
+    if ins.op == CONST:
+        return ()
+    if ins.op in (CAST, DIVC, POWC, NEG, ABS):
+        return ("a",)
+    if ins.op == WHERE:
+        return ("a", "b", "c")
+    return ("a", "b")
+
+
+def compact(prog: Program) -> Program:
+    """The program as the kernels run it, computing the same values:
+
+    - a scalar or fill ``CONST`` that a binary op (slots a, b) or ``where``
+      (slots b, c) reads in its own compute type becomes that instruction's
+      immediate (operand ``IMM``, value in ``cf``/``ci``), one a instruction;
+    - instructions whose value nothing reads are dropped;
+    - registers are reused: leaves sit in registers ``0 .. n_in``, and each
+      result takes the lowest register free after its operands' last reads
+      (a result may take the register of an operand read for the last time,
+      since an instruction reads all its operands before it writes).
+
+    ``n_reg`` is then the most registers live at once (at least ``n_in``);
+    a program with ``n_reg <= CREG`` runs on the amortized interpreter."""
+    if prog.n_reg:
+        return prog
+    n_in = len(prog.in_dtypes)
+    ins = list(prog.instrs)
+    for k, I in enumerate(ins):
+        slots = ("b", "a") if I.op in _FOLD_BINARY else ("c", "b") if I.op == WHERE else ()
+        for s in slots:
+            r = getattr(I, s)
+            c = ins[r - n_in] if r >= n_in else None
+            if c is not None and c.op == CONST and c.type == I.type:
+                ins[k] = replace(I, **{s: IMM}, cf=c.cf, ci=c.ci, cv=c.cv, scalar=c.scalar)
+                break
+    live, order = {prog.out}, []
+    for k in reversed(range(len(ins))):
+        if n_in + k in live:
+            order.append(k)
+            live.update(getattr(ins[k], s) for s in operand_slots(ins[k]))
+    order.reverse()
+    last = {prog.out: len(order)}
+    for j, k in enumerate(order):
+        for s in operand_slots(ins[k]):
+            if getattr(ins[k], s) != IMM:
+                last[getattr(ins[k], s)] = j
+    reg = {i: i for i in range(n_in)}
+    free = [i for i in range(n_in) if i not in last]
+    n_reg, out = n_in, []
+    for j, k in enumerate(order):
+        I = ins[k]
+        regs = {s: getattr(I, s) for s in operand_slots(I) if getattr(I, s) != IMM}
+        free += sorted({reg[r] for r in regs.values() if last[r] == j})
+        free.sort()
+        d = free.pop(0) if free else n_reg
+        n_reg = max(n_reg, d + 1)
+        reg[n_in + k] = d
+        out.append(replace(I, dst=d, **{s: reg[r] for s, r in regs.items()}))
+    return Program(prog.in_dtypes, tuple(out), reg[prog.out], prog.out_dtype, max(n_reg, 1))
+
+
 def result_dtype(f: Callable, dtypes: Sequence[torch.dtype]) -> torch.dtype:
     """Result dtype of elementwise ``f`` on dense operands of ``dtypes``
     (torch's promotion, on one-element CPU tensors)."""
@@ -373,24 +446,37 @@ def result_dtype(f: Callable, dtypes: Sequence[torch.dtype]) -> torch.dtype:
 class CInstr(ctypes.Structure):
     _fields_ = [("op", ctypes.c_int32), ("type", ctypes.c_int32),
                 ("a", ctypes.c_int32), ("b", ctypes.c_int32), ("c", ctypes.c_int32),
-                ("cf", ctypes.c_float), ("ci", ctypes.c_int32), ("pad", ctypes.c_int32)]
+                ("cf", ctypes.c_float), ("ci", ctypes.c_int32), ("dst", ctypes.c_int32)]
 
 
 class CProgram(ctypes.Structure):
     _fields_ = [("n_in", ctypes.c_int32), ("n_instr", ctypes.c_int32),
                 ("out", ctypes.c_int32), ("out_type", ctypes.c_int32),
+                ("n_reg", ctypes.c_int32),
                 ("in_type", ctypes.c_int32 * MAX_IN),
                 ("ins", CInstr * MAX_INSTR)]
 
 
 def to_c(prog: Program) -> CProgram:
+    """The compacted program (:func:`compact`) in csrc/ewise.cuh's layout;
+    cached, so a kernel launched again with the same closure packs nothing
+    (callers copy it or pass it by reference, and never change it). The
+    cache key holds each constant's bits: ``0.0 == -0.0`` would otherwise
+    let one program take the other's packed immediate."""
+    return _to_c(prog, tuple(struct.pack("<d", i.cf) for i in prog.instrs))
+
+
+@functools.lru_cache(maxsize=1024)
+def _to_c(prog: Program, _cf_bits: tuple) -> CProgram:
+    prog = compact(prog)
     p = CProgram()
     p.n_in = len(prog.in_dtypes)
     p.n_instr = len(prog.instrs)
     p.out = prog.out
     p.out_type = TYPE_CODE[prog.out_dtype]
+    p.n_reg = prog.n_reg
     for i, d in enumerate(prog.in_dtypes):
         p.in_type[i] = TYPE_CODE[d]
     for k, ins in enumerate(prog.instrs):
-        p.ins[k] = CInstr(ins.op, ins.type, ins.a, ins.b, ins.c, ins.cf, ins.ci, 0)
+        p.ins[k] = CInstr(ins.op, ins.type, ins.a, ins.b, ins.c, ins.cf, ins.ci, ins.dst)
     return p

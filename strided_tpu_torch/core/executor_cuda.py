@@ -38,11 +38,16 @@ from .view import StridedView
 from ..config import get_config
 
 __all__ = ["try_fused_mapreduce", "make_plan", "tile_executor", "tile_executor_reference",
-           "LAST_PLAN", "LAUNCHES"]
+           "LAST_PLAN", "LAUNCHES", "MAP_PATHS"]
 
 _log = logging.getLogger("strided_tpu_torch.dispatch")
 
 LAUNCHES: int = 0
+# launches of a map by the kernel the launcher reports it ran: "amortized"
+# (the body fits ewise.CREG registers), "scalar" (a wider body) or "copy" (a
+# transposed copy)
+MAP_PATHS: dict = {"amortized": 0, "scalar": 0, "copy": 0}
+_MAP_PATH_NAMES = ("copy", "amortized", "scalar")  # csrc/tile_executor.cu: *path
 MAX_DIM = 5  # csrc/tile_executor.cu: TE_MAX_DIM
 MAX_IN = ewise.MAX_IN
 _OK_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -248,7 +253,7 @@ class _CParams(ctypes.Structure):
                 ("n_out", ctypes.c_int64), ("n_red", ctypes.c_int64),
                 ("part_type", ctypes.c_int32), ("tdim", ctypes.c_int32),
                 ("tmask", ctypes.c_int32), ("chunks", ctypes.c_int32),
-                ("x_lanes", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("x_lanes", ctypes.c_int32), ("compact", ctypes.c_int32),
                 ("scratch", ctypes.c_void_p),
                 ("out", _COperand), ("old", _COperand), ("ins", _COperand * MAX_IN),
                 ("body", ewise.CProgram), ("init", ewise.CProgram)]
@@ -264,7 +269,7 @@ def _kernel_fn():
     from .._build import load_library
 
     fn = load_library().strided_tile_executor
-    fn.argtypes = [ctypes.POINTER(_CParams), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_CParams), ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
@@ -347,10 +352,17 @@ def tile_executor(plan: Plan, out_parent: torch.Tensor,
     p.body = ewise.to_c(plan.body)
     if plan.init is not None:
         p.init = ewise.to_c(plan.init)
+    if plan.red is None:
+        # the amortized kernels: a body of at most CREG registers, and 32-bit offsets
+        p.compact = int(p.body.n_reg <= ewise.CREG and len(in_parents) <= ewise.CREG
+                        and all(t.numel() < 2 ** 31 for t in tensors))
+    path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn()(ctypes.byref(p), stream)
+        err = _kernel_fn()(ctypes.byref(p), stream, ctypes.byref(path))
     if err != 0:
         raise RuntimeError(f"tile_executor: kernel launch failed, cudaError_t {err}")
     LAUNCHES += 1
+    if path.value >= 0:
+        MAP_PATHS[_MAP_PATH_NAMES[path.value]] += 1
     return new

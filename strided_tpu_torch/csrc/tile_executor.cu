@@ -14,12 +14,23 @@
 // scrambled ones (transposed reads), where one side of the copy cannot be
 // coalesced.
 //
-// Design: a map whose inputs read transposed goes through 32 x 64 tiles in
-// padded shared memory (tile_executor_t2d), the Hopper form of the TPU
-// kernel's in-VMEM transpose: every load and store is coalesced. Any other
-// map is per element: a thread owns one output element (the loop order puts
-// the output's unit-stride dim innermost, so writes are coalesced) and
-// computes every operand's address from its coordinates.
+// Design of a map. One whose inputs read transposed goes through 32 x 64
+// tiles in padded shared memory, the Hopper form of the TPU kernel's
+// in-VMEM transpose: every load and store is coalesced. The other maps have
+// the output's unit-stride dim innermost in the loop order, so a thread's
+// consecutive elements are 256 apart and every access is coalesced.
+// Interpreting f per element costs more than the memory (on an H100 the
+// 8192^2 smap ran at 1042 GB/s that way: a 40-entry register array in local
+// memory, behind a switch, for every operand of every instruction; PERF.md).
+// A copy's tile kernel (tile_copy_t2d) is separate. So a map whose compacted
+// body (core/ewise.py::compact) needs at most EW_CREG registers, and has at
+// most EW_CREG inputs, runs in three phases: every thread first issues all
+// its loads (8 elements a thread, constant trip counts: staged inputs into
+// the tile, the others into registers), then runs the program once over its
+// 8 elements (ewise.cuh::ew_run_v, the register file in registers), then
+// stores (tile_t2d_v, tile_map_v). A wider program runs the scalar
+// interpreter per element (tile_executor_t2d, and the map branch of
+// tile_executor_kernel).
 // For a reduction a block owns 32 output elements (1 below 32 outputs) and
 // splits the reduced extent over the rest of its 256 threads; where that
 // leaves the SMs idle the extent is also cut into chunks over blocks. Each
@@ -54,7 +65,8 @@ struct TeParams {
   int32_t tdim;    // a map's tiled dim (>= 0: stage the inputs in tmask through shared memory)
   int32_t tmask;   // bit k: input k reads along tdim with stride 1
   int32_t chunks;  // a reduction's chunks of the reduced extent (> 1: partials in scratch)
-  int32_t x_lanes, pad;  // a reduction's outputs per block (1, 8 or 32)
+  int32_t x_lanes;  // a reduction's outputs per block (1, 8 or 32)
+  int32_t compact;  // a map whose body fits EW_CREG registers: the amortized kernels
   EwVal* scratch;        // chunks * n_out partials
   TeOperand out, old;  // old: the output's previous values (reductions)
   TeOperand in[TE_MAX_IN];
@@ -93,7 +105,6 @@ __device__ __forceinline__ EwVal eval1(const EwProgram& prog, EwVal x) {
 __device__ __forceinline__ EwVal eval_at(const TeParams& p, const int64_t* off) {
   EwVal r[EW_MAX_REG];
   for (int k = 0; k < p.n_in; ++k) r[k] = ew_load(p.in[k].ptr, off[k], p.in[k].type);
-  if (p.body.n_instr == 0) return r[0];
   return ew_run(p.body, r);
 }
 
@@ -257,12 +268,136 @@ __global__ void __launch_bounds__(TX * R2) tile_executor_t2d(const __grid_consta
                  ? tiles[s++ * SLOT + tx * (TY + 1) + i]
                  : ew_load(p.in[k].ptr, off[k] + (int64_t)y * p.in[k].stride[dy] +
                                             (int64_t)x * p.in[k].stride[dx], p.in[k].type);
-    const EwVal v = p.body.n_instr == 0 ? r[0] : ew_run(p.body, r);
+    const EwVal v = ew_run(p.body, r);
     ew_store((void*)p.out.ptr,
              out_off + (int64_t)y * p.out.stride[dy] + (int64_t)x * p.out.stride[dx],
              p.out.type, v);
   }
 }
+
+// The amortized forms. Eight elements a thread: output element o + 256e of
+// the block's 2048 (tile_map_v), or row ty + 8e of a 32 x 64 tile
+// (tile_t2d_v). Inputs k < n_in <= R are loaded straight into register k of
+// the program's R x 8 register file, R = 2, 3 or 4, the fewest that hold the
+// body (the cost of reading and writing a register grows with R). Offsets
+// are 32-bit: every operand is a reshape of a parent of fewer than 2^31
+// elements (core/executor_cuda.py).
+constexpr int PER = 8;  // elements a thread
+
+template <int R>
+__global__ void __launch_bounds__(THREADS, 2) tile_map_v(const __grid_constant__ TeParams p) {
+  EwVal r[R][PER];
+  int32_t off[R][PER], out_off[PER];
+  bool ok[PER];
+  const int64_t base = (int64_t)blockIdx.x * THREADS * PER + threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {  // every address first
+    const int64_t o = base + e * THREADS;
+    ok[e] = o < p.n_out;
+    uint32_t rem = ok[e] ? (uint32_t)o : 0u;
+    out_off[e] = (int32_t)p.out.offset;
+#pragma unroll
+    for (int k = 0; k < R; ++k) off[k][e] = (int32_t)p.in[k].offset;
+    for (int d = p.rank - 1; d >= 0; --d) {
+      const uint32_t dim = (uint32_t)p.dims[d], c = rem % dim;
+      rem /= dim;
+#pragma unroll
+      for (int k = 0; k < R; ++k) off[k][e] += (int32_t)c * (int32_t)p.in[k].stride[d];
+      out_off[e] += (int32_t)c * (int32_t)p.out.stride[d];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k)  // then every load
+    if (k < p.n_in) ew_load_v<PER>(p.in[k].ptr, off[k], ok, p.in[k].type, r[k]);
+  ew_run_v(p.body, r);
+  EwVal v[PER];
+  ew_reg(r, p.body.out, v);
+  ew_store_v<PER>((void*)p.out.ptr, out_off, ok, p.out.type, v);
+}
+
+template <int R>  // R = 2 fits 80 registers, so three blocks an SM; 3 and 4 would spill there
+__global__ void __launch_bounds__(TX * R2, R == 2 ? 3 : 2) tile_t2d_v(const __grid_constant__ TeParams p) {
+  extern __shared__ EwVal tiles[];
+  const int dx = p.rank - 1, dy = p.tdim;
+  const uint32_t nx = (uint32_t)p.dims[dx], ny = (uint32_t)p.dims[dy];
+  const uint32_t tx_tiles = (nx + TX - 1) / TX, ty_tiles = (ny + TY - 1) / TY;
+  uint32_t b = blockIdx.x;
+  const uint32_t x0 = (b % tx_tiles) * TX;
+  b /= tx_tiles;
+  const uint32_t y0 = (b % ty_tiles) * TY;
+  b /= ty_tiles;
+  int32_t off[R];
+  int32_t out_off = (int32_t)p.out.offset;
+#pragma unroll
+  for (int k = 0; k < R; ++k) off[k] = (int32_t)p.in[k].offset;
+  for (int d = dx - 1; d >= 0; --d) {  // the tile row: every other dim
+    if (d == dy) continue;
+    const uint32_t dim = (uint32_t)p.dims[d], c = b % dim;
+    b /= dim;
+#pragma unroll
+    for (int k = 0; k < R; ++k) off[k] += (int32_t)c * (int32_t)p.in[k].stride[d];
+    out_off += (int32_t)c * (int32_t)p.out.stride[d];
+  }
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const uint32_t x = x0 + tx;
+  // the thread's elements: rows y0 + ty + 8e of column x
+  bool ok[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) ok[e] = x < nx && y0 + ty + e * R2 < ny;
+  EwVal r[R][PER];
+  // phase 1: every load. A staged input is read along tdim, its unit-stride
+  // dim, into tile[x][y] (element q of the thread: tile column ty +
+  // 8(q % 4), row 32(q / 4) + tx); the others straight into registers.
+  int slot = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (k >= p.n_in) continue;
+    const TeOperand& o = p.in[k];
+    const int32_t sx = (int32_t)o.stride[dx], sy = (int32_t)o.stride[dy];
+    int32_t idx[PER];
+    if ((p.tmask >> k) & 1) {
+      bool in[PER];
+      EwVal t[PER];
+#pragma unroll
+      for (int q = 0; q < PER; ++q) {
+        const uint32_t xx = x0 + ty + (q % 4) * R2, yy = y0 + (q / 4) * TX + tx;
+        in[q] = xx < nx && yy < ny;
+        idx[q] = off[k] + (int32_t)yy * sy + (int32_t)xx * sx;
+      }
+      ew_load_v<PER>(o.ptr, idx, in, o.type, t);
+      EwVal* tile = tiles + slot++ * SLOT;
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        if (in[q]) tile[(ty + (q % 4) * R2) * (TY + 1) + (q / 4) * TX + tx] = t[q];
+    } else {
+      const int32_t at = off[k] + (int32_t)(y0 + ty) * sy + (int32_t)x * sx;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) idx[e] = at + e * R2 * sy;
+      ew_load_v<PER>(o.ptr, idx, ok, o.type, r[k]);
+    }
+  }
+  __syncthreads();
+  slot = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (k >= p.n_in || !((p.tmask >> k) & 1)) continue;
+    const EwVal* tile = tiles + slot++ * SLOT + tx * (TY + 1) + ty;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) r[k][e] = tile[e * R2];
+  }
+  // phase 2: the program over the thread's 8 elements; phase 3: the stores
+  ew_run_v(p.body, r);
+  EwVal v[PER];
+  ew_reg(r, p.body.out, v);
+  const int32_t oy = (int32_t)p.out.stride[dy];
+  const int32_t at = out_off + (int32_t)(y0 + ty) * oy + (int32_t)x * (int32_t)p.out.stride[dx];
+  int32_t idx[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) idx[e] = at + e * R2 * oy;
+  ew_store_v<PER>((void*)p.out.ptr, idx, ok, p.out.type, v);
+}
+
+typedef void (*TeKernel)(TeParams);
 
 // The same tiles for the commonest case, a transposed copy (one input, the
 // identity, one type): T is the element type, and nothing but the copy is
@@ -312,9 +447,13 @@ __global__ void __launch_bounds__(TX * R2) tile_copy_t2d(const __grid_constant__
 
 }  // namespace
 
-extern "C" int strided_tile_executor(const TeParams* p, void* stream) {
+// *path is set to the map kernel launched: 0 tile_copy_t2d, 1 the amortized
+// interpreter (tile_t2d_v, tile_map_v), 2 the scalar one; -1 a reduction.
+extern "C" int strided_tile_executor(const TeParams* p, void* stream, int* path) {
+  *path = -1;
   if (p->rank < 1 || p->rank > TE_MAX_DIM || p->n_in < 0 || p->n_in > TE_MAX_IN ||
-      p->n_out < 1 || p->n_red < 1)
+      p->n_out < 1 || p->n_red < 1 || p->body.n_reg < 1 || p->body.n_reg > EW_MAX_REG ||
+      (p->compact && (p->red >= 0 || p->body.n_reg > EW_CREG || p->n_in > EW_CREG)))
     return (int)cudaErrorInvalidValue;
   if (p->red < 0 && p->tdim >= 0) {
     if (p->tdim >= p->rank - 1 || p->n_par != p->rank) return (int)cudaErrorInvalidValue;
@@ -329,14 +468,36 @@ extern "C" int strided_tile_executor(const TeParams* p, void* stream) {
         tile_copy_t2d<__nv_bfloat16><<<(unsigned)tiles, dim3(TX, R2), 0, (cudaStream_t)stream>>>(*p);
       else
         tile_copy_t2d<int32_t><<<(unsigned)tiles, dim3(TX, R2), 0, (cudaStream_t)stream>>>(*p);
+      *path = 0;
       return (int)cudaGetLastError();
     }
     const size_t smem = (size_t)__builtin_popcount(p->tmask) * SLOT * sizeof(EwVal);
-    cudaError_t err = cudaFuncSetAttribute(tile_executor_t2d,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           TE_MAX_IN * SLOT * (int)sizeof(EwVal));
-    if (err != cudaSuccess) return (int)err;
+    if (p->compact) {  // at most EW_CREG staged inputs: under the 48 KB default
+      const int regs = p->body.n_reg;  // at least n_in (core/ewise.py::compact)
+      TeKernel k = regs <= 2 ? tile_t2d_v<2> : regs == 3 ? tile_t2d_v<3> : tile_t2d_v<4>;
+      k<<<(unsigned)tiles, dim3(TX, R2), smem, (cudaStream_t)stream>>>(*p);
+      *path = 1;
+      return (int)cudaGetLastError();
+    }
+    static bool smem_raised = false;  // once per process
+    if (!smem_raised) {
+      cudaError_t err = cudaFuncSetAttribute(tile_executor_t2d,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             TE_MAX_IN * SLOT * (int)sizeof(EwVal));
+      if (err != cudaSuccess) return (int)err;
+      smem_raised = true;
+    }
     tile_executor_t2d<<<(unsigned)tiles, dim3(TX, R2), smem, (cudaStream_t)stream>>>(*p);
+    *path = 2;
+    return (int)cudaGetLastError();
+  }
+  if (p->compact) {
+    const int64_t blocks = (p->n_out + THREADS * PER - 1) / (THREADS * PER);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int regs = p->body.n_reg;
+    TeKernel k = regs <= 2 ? tile_map_v<2> : regs == 3 ? tile_map_v<3> : tile_map_v<4>;
+    k<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(*p);
+    *path = 1;
     return (int)cudaGetLastError();
   }
   // a map: one output element a thread. A reduction: x_lanes outputs a
@@ -357,6 +518,7 @@ extern "C" int strided_tile_executor(const TeParams* p, void* stream) {
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   tile_executor_kernel<<<dim3((unsigned)blocks, chunks), dim3(X, Y), 0, s>>>(*p);
+  if (p->red < 0) *path = 2;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
   tile_executor_merge<<<(unsigned)((p->n_out + THREADS - 1) / THREADS), THREADS, 0, s>>>(*p);

@@ -137,14 +137,18 @@ def test_stream_reduce_plain_matches_pallas(red, dtype, with_f):
 
 
 def test_row_chunks_fill_the_card_and_stay_deterministic():
-    assert tsr.row_chunks(8192, 8192) == 3
-    assert tsr.row_chunks(8192, 8192, vec=4) == 9
-    assert tsr.vector_width(torch.zeros(8, 64)) == 4
+    """(chunks, rows a chunk): one wave of at most 132 x 4 blocks, chunks
+    of whole 64-row steps, as tall as that allows."""
+    assert tsr.row_chunks(8192, 8192) == (2, 4096)  # 256 column blocks of 32
+    assert tsr.row_chunks(8192, 8192, vec=8) == (16, 512)  # 32 column blocks of 256
+    assert tsr.row_chunks(8192, 4096, vec=8) == (32, 256)
+    assert tsr.vector_width(torch.zeros(8, 64)) == 8
     assert tsr.vector_width(torch.zeros(8, 66)) == 1
-    assert tsr.vector_width(torch.zeros(8, 64, dtype=torch.bfloat16)) == 1
-    assert tsr.row_chunks(100, 8192) == 1  # too few rows to split
-    assert tsr.row_chunks(65536, 64) == 256
-    assert all(tsr.row_chunks(n, m) >= 1 for n in (1, 7, 300) for m in (1, 33))
+    assert tsr.vector_width(torch.zeros(8, 64, dtype=torch.bfloat16)) == 8
+    assert tsr.vector_width(torch.zeros(8, 68, dtype=torch.bfloat16)) == 1
+    assert tsr.row_chunks(100, 8192) == (2, 64)  # one 64-row step and the rest
+    assert tsr.row_chunks(65536, 64) == (256, 256)
+    assert all(tsr.row_chunks(n, m)[0] >= 1 for n in (1, 7, 300) for m in (1, 33))
 
 
 def test_tile_executor_scrambled_copy_matches_pallas():
@@ -252,8 +256,8 @@ def test_program_evaluator_equals_direct_torch(name, dtype):
     got = ewise.evaluate(prog, [x, y])
     assert prog.out_dtype == want.dtype == got.dtype
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
-    c = ewise.to_c(prog)
-    assert (c.n_in, c.n_instr, c.out) == (2, len(prog.instrs), prog.out)
+    c, cp = ewise.to_c(prog), ewise.compact(prog)
+    assert (c.n_in, c.n_instr, c.out, c.n_reg) == (2, len(cp.instrs), cp.out, cp.n_reg)
 
 
 def test_mod_is_floor_mod_like_jax():
