@@ -8,18 +8,29 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 
 1. device: a CUDA device is required; prints its name and power limit;
 2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc, and
-   prints ptxas's registers, stack frame and spills of every K3 and K4
-   kernel;
+   prints ptxas's registers, stack frame and spills of every K1, K3 and K4
+   kernel; K1's 64-row instance (the main path's) must not spill;
 3. kernel vs plain: the fused-ADMM kernel against its plain PyTorch version
-   on the same inputs (main-path QP at B in {16384, 33, 31, 1}; random QPs
-   at D=12 and D=400), and both against the same iterations in f64;
+   on the same inputs, and both against the same iterations in f64: the
+   main-path QP (D=200) at B = 16384, at 64 * #SMs +- 1 (one row past or
+   short of a whole wave of 64-row tiles), 63, 65, 33, 31 and 1; random QPs
+   at D = 1, 12, 199, 201, 208 (the last width of the 64-row tiles), 209
+   (the first of the wide instance's 16-row ones), 300 at B = 16 * #SMs +
+   1, 400 and 512 (S streamed in panels), and 200 with z0 outside the
+   bounds;
 4. accuracy gate: first applied input within 1e-4 and horizon plan within
    0.15 of a converged f64 ADMM oracle, through the kernel path;
 5. main path: a 50-step closed loop at batch 16384 through
    ``strided_tpu_torch.entry.make_controller``; it must launch the kernel once
    per step, stay finite, shrink the state, and agree with the plain path;
-6. times (CUDA events after warm-up): the step, the kernel and its plain
-   version;
+6. times (CUDA events after warm-up): the step eagerly and as device time
+   alone (``bench.step_device_ms``: the step captured in a CUDA graph, first
+   held bit for bit against the eager step), with the kernel on and off;
+   the kernel against its plain version and six cuBLAS products of the same
+   shapes under IEEE FP32 (``product_ms``); then ``benchmarks/exp_admm.py``:
+   K1, the tile designs it was chosen over and S streamed through its ring
+   in panels of 32 and 64 rows, each checked as in phase 3 and timed at 6
+   and 12 iterations;
 7. wide QP: ``qp_solve`` at horizon 150 (D = N*m = 600, above the kernel's
    MAX_D = 512) with the kernel enabled must take the loop path and agree
    with it, finite;
@@ -119,15 +130,17 @@ def _admm_inputs(ctrl, x):
     return g, z0, qp.solver, lo, hi
 
 
-def _random_inputs(rng, B, D, device):
+def _random_inputs(rng, B, D, device, z0_scale=0.0):
     """A random QP with the main path's structure: S = (H + rho I)^-1 of a
-    random SPD H, bounds of +-1, |g| up to ~30."""
+    random SPD H, bounds of +-1, |g| up to ~30; z0 = z0_scale * N(0, 1),
+    which may lie outside the bounds (the first iteration takes it as
+    given)."""
     G = rng.standard_normal((D, D))
     S = np.linalg.inv(G @ G.T / D + 8.0 * np.eye(D))
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     g = f32(10.0 * rng.standard_normal((B, D)))
     lo, hi = f32(-np.ones(D)), f32(np.ones(D))
-    return g, torch.zeros_like(g), f32(S), lo, hi
+    return g, f32(z0_scale * rng.standard_normal((B, D))), f32(S), lo, hi
 
 
 def main() -> None:
@@ -135,7 +148,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; this test runs on the GPU only")
 
     from strided_tpu_torch import _build, closed_loop, config
-    from strided_tpu_torch.bench import card_label, cuda_ms, mpc_accuracy, mpc_solves
+    from strided_tpu_torch.bench import card_label, mpc_accuracy
     from strided_tpu_torch.entry import make_controller
     from strided_tpu_torch.mpc import fused_admm as fa  # the module
 
@@ -148,7 +161,11 @@ def main() -> None:
     t = time.perf_counter()
     _build.load_library()
     print(f"[2 build] nvcc sm_90a: {time.perf_counter() - t:.1f} s")
-    ptxas_report()
+    main_k1 = [spill for src, name, _regs, spill in ptxas_report()
+               if src == "fused_admm" and K1_MAIN_INSTANCE in name]
+    if main_k1 != [0]:
+        raise RuntimeError(f"ptxas: the main path's {K1_MAIN_INSTANCE} is missing or spills "
+                           f"(spill stores {main_k1})")
 
     rho, alpha, iters = 8.0, 1.6, 6
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
@@ -182,12 +199,15 @@ def main() -> None:
 
     rng = np.random.default_rng(0)
     max_err = 0.0
-    for B in (16384, 33, 31, 1):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B in (16384, 64 * sms - 1, 64 * sms + 1, 65, 63, 33, 31, 1):
         x = torch.as_tensor(rng.uniform(-0.3, 0.3, (B, 12)), dtype=torch.float32,
                             device=dev)
         max_err = max(max_err, check(*_admm_inputs(ctrl, x)))
-    for B, D in ((33, 12), (33, 400)):
+    for B, D in ((65, 1), (33, 12), (65, 199), (65, 201), (65, 208), (65, 209),
+                 (16 * sms + 1, 300), (33, 400), (65, 512)):
         check(*_random_inputs(rng, B, D, dev))
+    check(*_random_inputs(rng, 65, 200, dev, z0_scale=2.0))
 
     first, plan, uscale = mpc_accuracy(dev, batch=64)
     print(f"[4 gate] first input {first:.3e} (< 1e-4), plan {plan:.3e} (< 0.15), "
@@ -225,32 +245,7 @@ def main() -> None:
     if not e_loop <= ATOL_LOOP:
         raise RuntimeError(f"closed loop off the plain path by {e_loop:.3e} > {ATOL_LOOP}")
 
-    def step_ms(fused: bool) -> float:
-        config.set_config(fused_admm=fused)
-        try:
-            return mpc_solves(dev, batch=batch)[0]
-        finally:
-            config.set_config(fused_admm=True)
-
-    # in turns (kernel, plain, plain, kernel) so drift hits both sides alike
-    s_k1, s_p1, s_p2, s_k2 = step_ms(True), step_ms(False), step_ms(False), step_ms(True)
-    print(f"[6 times] step batch={batch}: kernel path {s_k1:.4f}/{s_k2:.4f} ms "
-          f"({batch / (min(s_k1, s_k2) * 1e-3):.0f} solves/s), plain ADMM loop "
-          f"{s_p1:.4f}/{s_p2:.4f} ms ({batch / (min(s_p1, s_p2) * 1e-3):.0f} solves/s) [{card}]")
-    x = torch.as_tensor(rng.uniform(-0.3, 0.3, (batch, 12)), dtype=torch.float32, device=dev)
-    args = _admm_inputs(ctrl, x)
-    kw = dict(rho=rho, alpha=alpha, iters=iters)
-    timed = config.matmul_precision_scope(cuda_ms)
-    kernel = lambda: fa.fused_admm(*args, **kw)
-    plain = lambda: fa.fused_admm_reference(*args, **kw)
-    ms_k, ms_p, ms_p2, ms_k2 = (timed(f, reps=100) for f in (kernel, plain, plain, kernel))
-    D = args[0].shape[1]
-    # the products only: 2 * B * D^2 flops an iteration (the clip and the
-    # updates add ~2%); g, z0 and the result, S, lo and hi in f32
-    k1_bound = bound(4 * (3 * batch * D + D * D + 2 * D), 2 * iters * batch * D * D)
-    print(f"[6 times] fused_admm B={batch} D={D} iters=6: kernel {ms_k:.4f}/{ms_k2:.4f} ms, "
-          f"plain {ms_p:.4f}/{ms_p2:.4f} ms, bound {k1_bound['bound_ms']:.4f} ms "
-          f"({k1_bound['bound_by']}) [{card}]")
+    k1 = k1_times(dev, ctrl, rng, batch, card, rho=rho, alpha=alpha, iters=iters)
 
     wide_qp_check(dev)
     engine = engine_phases(dev, card)
@@ -265,13 +260,67 @@ def main() -> None:
         "replaces": "strided_tpu/mpc/qp.py:157",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": min(ms_k, ms_k2),
-        "plain_ms": min(ms_p, ms_p2),
-        **k1_bound,
+        **k1,
         "library_ms": None,
     }, *engine, *probes, *last]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+# the main path's K1 instance (8 x 8 thread tiles, g in registers), as ptxas names it
+K1_MAIN_INSTANCE = "fused_admm_kernelILi8ELi8ELi8ELb1E"
+
+
+def k1_times(dev, ctrl, rng, batch, card, *, rho, alpha, iters) -> dict:
+    """Phase 6: the step, eagerly (``mpc_solves``) and as device time alone
+    (``step_device_ms``), with K1 on and off in turns; then K1 at the main
+    path's shape against its plain version and six cuBLAS products of the
+    same shapes under IEEE FP32 (how fast the library runs this product in
+    FP32; no single call computes ADMM), in turns; then K1's designs
+    (``benchmarks/exp_admm.py``). Returns K1's times and bound for the JSON
+    line."""
+    from strided_tpu_torch import config
+    from strided_tpu_torch.bench import mpc_solves, step_device_ms
+    from strided_tpu_torch.benchmarks import exp_admm
+    from strided_tpu_torch.mpc import fused_admm as fa
+
+    def step(fused: bool, timer) -> float:
+        config.set_config(fused_admm=fused)
+        try:
+            return timer(fused)
+        finally:
+            config.set_config(fused_admm=True)
+
+    eager = lambda fused: mpc_solves(dev, batch=batch)[0]  # noqa: E731
+    device = lambda fused: step_device_ms(dev, batch=batch)  # noqa: E731
+    # in turns (kernel, plain, plain, kernel) so drift hits both sides alike
+    for what, timer in (("eagerly", eager), ("device time (CUDA graph)", device)):
+        k1_, p1, p2, k2 = (step(f, timer) for f in (True, False, False, True))
+        print(f"[6 times] step batch={batch} {what}: kernel path {k1_:.4f}/{k2:.4f} ms "
+              f"({batch / (min(k1_, k2) * 1e-3):.0f} solves/s), plain ADMM loop "
+              f"{p1:.4f}/{p2:.4f} ms ({batch / (min(p1, p2) * 1e-3):.0f} solves/s) [{card}]")
+    x = torch.as_tensor(rng.uniform(-0.3, 0.3, (batch, 12)), dtype=torch.float32, device=dev)
+    args = _admm_inputs(ctrl, x)
+    kw = dict(rho=rho, alpha=alpha, iters=iters)
+    ieee = config.matmul_precision_scope
+    rhs = torch.randn(args[0].shape, device=dev, generator=torch.Generator(dev).manual_seed(4))
+    kernel = lambda: fa.fused_admm(*args, **kw)  # noqa: E731
+    plain = ieee(lambda: fa.fused_admm_reference(*args, **kw))
+    products = ieee(lambda: [torch.matmul(rhs, args[2]) for _ in range(iters)])
+    times = _turns(kernel, plain, reps=100, library=products)
+    B, D = args[0].shape
+    # the products only: 2 * B * D^2 flops an iteration (the clip and the
+    # updates add ~2%); g, z0 and the result, S, lo and hi in f32
+    k1_bound = bound(4 * (3 * B * D + D * D + 2 * D), 2 * iters * B * D * D)
+    _report(6, f"fused_admm B={B} D={D} iters={iters}, bound {k1_bound['bound_ms']:.4f} ms "
+            f"({k1_bound['bound_by']}); one PyTorch call: {iters} torch.matmul "
+            f"({B}, {D}) @ ({D}, {D}) IEEE FP32", "GFLOP/s", 2 * iters * B * D * D, times, card)
+    rows = exp_admm.run()  # K1 and the tile designs it was chosen over
+    for row in rows:
+        print(f"[6 K1 designs] {json.dumps(row)} [{card}]")
+    if not all(r["ok"] for r in rows):
+        raise RuntimeError("a K1 tile design disagreed with the plain version")
+    return {"ms": times[0], "plain_ms": times[1], **k1_bound, "product_ms": times[3]}
 
 
 def wide_qp_check(dev) -> None:
@@ -831,9 +880,10 @@ def _report(phase, what, unit, amount, times, card):
           f"plain {p1:.4f}/{p2:.4f} ms ({amount / p / 1e6:.0f} {unit}){lib} [{card}]")
 
 
-def ptxas_report(sources=("stream_reduce", "tile_executor")) -> None:
+def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor")) -> list:
     """Registers, stack frame and spills of each kernel of ``sources``, from
-    the ptxas report (``-Xptxas -v``) the build keeps beside the library."""
+    the ptxas report (``-Xptxas -v``) the build keeps beside the library.
+    Returns ``(source, kernel, registers, spill bytes stored)`` for each."""
     import re
 
     from strided_tpu_torch import _build
@@ -842,6 +892,7 @@ def ptxas_report(sources=("stream_reduce", "tile_executor")) -> None:
 
     path = Path(_build.load_library()._name).with_suffix(".log")
     log = path.read_text() if path.is_file() else ""
+    found = []
     for section in re.split(r"\n(?=\S*nvcc )", log):
         src = next((x for x in sources if section.split("\n", 1)[0].endswith(f"/{x}.cu")), None)
         if src is None:
@@ -852,6 +903,9 @@ def ptxas_report(sources=("stream_reduce", "tile_executor")) -> None:
                              r"\s*(.*?)\n.*?Used (\d+) registers", section, re.S):
             name, frame, regs = m.groups()
             print(f"[ptxas] {src}.cu {name}: {regs} registers, {frame.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores", frame)
+            found.append((src, name, int(regs), int(spill.group(1)) if spill else 0))
+    return found
 
 
 ATOL_MUL64 = 1e-2  # f32 mul 8192^2 vs f64: IEEE ~2e-3 at most, TF32 ~4e-2 typical

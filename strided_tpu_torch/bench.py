@@ -17,7 +17,8 @@ import torch
 
 from .entry import make_controller
 
-__all__ = ["mpc_accuracy", "mpc_solves", "profile_step", "cuda_ms", "card_label"]
+__all__ = ["mpc_accuracy", "mpc_solves", "step_device_ms", "profile_step", "cuda_ms",
+           "card_label"]
 
 DT = 0.02
 
@@ -136,6 +137,42 @@ def mpc_solves(device="cuda", batch: int = 16384, horizon: int = 50,
     print(f"mpc step batch={batch} N={horizon}: {ms:.4f} ms/step, "
           f"{solves:.0f} solves/s [{card_label()}]")
     return ms, solves
+
+
+def step_device_ms(device="cuda", batch: int = 16384, horizon: int = 50,
+                   reps: int = 20) -> float:
+    """Device milliseconds of the closed-loop step: ``reps`` chained steps
+    captured in one CUDA graph and replayed (``graph_ms``), so no host
+    dispatch lies between its kernels. First one captured step is replayed
+    on a state and held against the eager step on the same state: they must
+    agree bit for bit, else this raises. The entry points stay eager."""
+    if torch.device(device).type != "cuda":
+        raise RuntimeError(f"step_device_ms times a CUDA device, got {device!r}")
+    step, state = _stepper(device, batch, horizon)
+    x = state[0].clone()
+    step()  # warm-up: caches, cuBLAS handles
+    state[0] = x.clone()
+    step()
+    eager = state[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        state[0] = x.clone()
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    static = x.clone()
+    state[0] = static
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    captured = state[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(captured, eager):
+        diff = (captured - eager).abs().max().item()
+        raise RuntimeError(f"captured step differs from the eager step by {diff:.3e}")
+    state[0] = x.clone()
+    return graph_ms(step, reps=reps)
 
 
 def profile_step(device="cuda", batch: int = 16384, horizon: int = 50,

@@ -15,10 +15,17 @@ __all__ = ["quadrotor", "hover_state", "hover_input"]
 
 
 def quadrotor(m=1.0, g=9.81, Jx=0.01, Jy=0.01, Jz=0.02) -> Model:
+    consts = {}
+
     def dynamics(x, u):
-        # constants in the state's dtype and device, so f32 never promotes
-        J = torch.tensor([Jx, Jy, Jz], dtype=x.dtype, device=x.device)
-        grav = torch.tensor([0.0, 0.0, g], dtype=x.dtype, device=x.device)
+        # constants in the state's dtype and device, so f32 never promotes;
+        # made once per (dtype, device), so a step copies nothing from the
+        # host and can be captured in a CUDA graph
+        key = (x.dtype, x.device)
+        if key not in consts:
+            consts[key] = (torch.tensor([Jx, Jy, Jz], dtype=x.dtype, device=x.device),
+                           torch.tensor([0.0, 0.0, g], dtype=x.dtype, device=x.device))
+        J, grav = consts[key]
         v = x[..., 3:6]
         phi, th, psi = x[..., 6], x[..., 7], x[..., 8]
         w = x[..., 9:12]

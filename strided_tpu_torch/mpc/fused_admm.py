@@ -9,12 +9,16 @@ What bounds it on an H100: at the main-path size (B=16384 scenarios,
 D=N*m=200, 6 iterations) the iterations are 2*B*D^2*iters = 7.9 GFLOP of
 FP32 products, which must stay IEEE FP32 (a TF32 product misses the 1e-4
 accuracy gate), so the CUDA cores and not the tensor cores bound it; the
-device traffic is only g + z0 + z = 39 MB. The design therefore keeps the
-iterates in registers (z, y, g) and shared memory (the rhs tile) across all
-iterations, and keeps S (160 KB at D=200) resident in the block's shared
-memory, loaded once per 32-row batch tile, so the inner loop reads only
-shared memory. Wider QPs whose S does not fit reload it in row panels from
-L2 every iteration.
+device traffic is only g + z0 + z = 39 MB. The design therefore feeds the
+FMA pipe: each thread owns an 8-row x 8-column register tile, so 4 16-byte
+shared-memory loads feed 64 FMAs; the operands of the next k-step are
+loaded during this one's FMAs; one register an output carries both iterates
+(v = u_rel + y; z = clip(v), y = v - z), and g stays in registers too; a
+persistent grid, one block of 7 warps an SM at the main path's width,
+copies S (160 KB at D=200) into shared memory once and keeps it for every
+batch tile and iteration. Wider QPs whose S does not fit stream it from L2
+through a two-panel ``cp.async`` ring. ``benchmarks/exp_admm.py`` measures
+the designs this one was chosen over.
 
 ``fused_admm`` launches the kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it runs ``fused_admm_reference``, the same iterations in

@@ -200,6 +200,25 @@ def test_timings_refuse_the_cpu():
         tbench.mpc_solves(device="cpu", batch=8)
 
 
+def test_step_device_time_refuses_the_cpu():
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbench.step_device_ms(device="cpu", batch=8)
+
+
+def test_quadrotor_constants_follow_the_state_dtype():
+    """The dynamics make their constants once per dtype and device (so a
+    step copies nothing from the host and can be captured in a CUDA graph):
+    an f32 call after an f64 one still stays f32, and repeated calls agree."""
+    f = stt.quadrotor().dynamics
+    x = torch.as_tensor(np.random.default_rng(4).uniform(-0.3, 0.3, (5, 12)))
+    u = torch.as_tensor(np.random.default_rng(5).uniform(-1.0, 1.0, (5, 4)))
+    d64 = f(x, u)
+    d32 = f(x.float(), u.float())
+    assert d64.dtype == torch.float64 and d32.dtype == torch.float32
+    assert torch.equal(f(x.float(), u.float()), d32) and torch.equal(f(x, u), d64)
+    np.testing.assert_allclose(d32.numpy(), d64.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def test_matmul_precision_scope_pins_and_restores():
     seen = []
     scoped = tconfig.matmul_precision_scope(
@@ -225,6 +244,7 @@ def test_import_does_not_load_jax():
         "from strided_tpu_torch.core import view, regularize, planner, broadcast, ewise\n"
         "from strided_tpu_torch.core import lazy_expr, mapreduce, kernels_special\n"
         "from strided_tpu_torch.core import stream_reduce, executor_cuda\n"
+        "import strided_tpu_torch.benchmarks.exp_admm\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -29,8 +29,8 @@ def _quad_data(dt=0.05, r=0.1):
     return np.asarray(A), np.asarray(B), np.diag(np.array(Q_DIAG, float)), np.eye(4) * r
 
 
-def _both_qps(N, rho=1.0, dtype="f64", r=0.1):
-    A, B, Q, R = _quad_data(r=r)
+def _both_qps(N, rho=1.0, dtype="f64", r=0.1, dt=0.05):
+    A, B, Q, R = _quad_data(dt=dt, r=r)
     jdt, tdt = (jnp.float64, torch.float64) if dtype == "f64" else (jnp.float32, torch.float32)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -132,28 +132,76 @@ def test_fused_admm_reference_matches_jax_kernel(B, N, tol):
     assert tfa.LAUNCHES == before
 
 
+def _fused_vs_jax_loop(jq, x, u_min, u_max):
+    """(port, JAX): the port's fused_admm (its plain version on the CPU), fed
+    as qp_solve feeds it, and the JAX package's qp_solve on its loop path,
+    on the same f32 QP ``jq`` and states ``x``; both ``(B, N, m)``."""
+    old = jget()
+    try:
+        jset(fused_admm=False)
+        want = np.asarray(jqp.qp_solve(jq, jnp.asarray(x), jnp.asarray(u_min, jnp.float32),
+                                       jnp.asarray(u_max, jnp.float32), iters=6))
+    finally:
+        jset(**{k: getattr(old, k) for k in old.__dataclass_fields__})
+    assert not jq.use_chol  # the kernel takes the explicit inverse
+    xt = torch.as_tensor(x)
+    M, K, S = (torch.as_tensor(np.asarray(a)) for a in (jq.M, jq.K_lqr, jq.solver))
+    lo = torch.as_tensor(np.tile(u_min, jq.N), dtype=torch.float32)
+    hi = torch.as_tensor(np.tile(u_max, jq.N), dtype=torch.float32)
+    z0 = torch.minimum(torch.maximum(-xt @ K.T, lo), hi)
+    got = tfa.fused_admm(xt @ M.T, z0, S, lo, hi, rho=8.0, alpha=1.6, iters=6)
+    return got.numpy().reshape(want.shape), want
+
+
 @pytest.mark.parametrize("B", [31, 33])
 def test_fused_admm_ragged_batches_match_jax_loop(B):
     """Batches the JAX kernel cannot tile (it falls back to its scan): the
     port's fused_admm, fed as qp_solve feeds it, against the JAX loop path on
     the same f32 QP."""
-    N = 8
-    jq, _ = _both_qps(N, rho=8.0, dtype="f32")
+    jq, _ = _both_qps(8, rho=8.0, dtype="f32")
     x = np.random.default_rng(B).uniform(-0.3, 0.3, (B, 12)).astype(np.float32)
-    old = jget()
-    try:
-        jset(fused_admm=False)
-        want = np.asarray(jqp.qp_solve(jq, jnp.asarray(x), jnp.asarray(U_MIN, jnp.float32),
-                                       jnp.asarray(U_MAX, jnp.float32), iters=6))
-    finally:
-        jset(**{k: getattr(old, k) for k in old.__dataclass_fields__})
-    xt = torch.as_tensor(x)
-    M, K, S = (torch.as_tensor(np.asarray(a)) for a in (jq.M, jq.K_lqr, jq.solver))
-    lo = torch.as_tensor(np.tile(U_MIN, N), dtype=torch.float32)
-    hi = torch.as_tensor(np.tile(U_MAX, N), dtype=torch.float32)
-    z0 = torch.minimum(torch.maximum(-xt @ K.T, lo), hi)
-    got = tfa.fused_admm(xt @ M.T, z0, S, lo, hi, rho=8.0, alpha=1.6, iters=6)
-    np.testing.assert_allclose(got.numpy().reshape(B, N, 4), want, rtol=0, atol=1e-5)
+    got, want = _fused_vs_jax_loop(jq, x, U_MIN, U_MAX)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _one_input_qp(N):
+    """A 2-state, 1-input double integrator at horizon N (D = N), f32, rho 8."""
+    A = np.array([[1.0, 0.1], [0.0, 1.0]])
+    B = np.array([[0.005], [0.1]])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return jqp.build_condensed(jnp.asarray(A, jnp.float32), jnp.asarray(B, jnp.float32),
+                                   np.diag([10.0, 1.0]), np.eye(1) * 0.1, np.diag([10.0, 1.0]),
+                                   N, 8.0)
+
+
+@pytest.mark.parametrize("case,B", [("D=1", 65), ("D=512", 33), ("D=200, B=8447", 8447)])
+def test_fused_admm_reference_matches_jax_loop_at_the_kernel_edges(case, B):
+    """The widths and batch at the kernel's tile edges that no other test
+    holds against the JAX package: D = 1 (a one-input QP at horizon 1),
+    D = MAX_D = 512 (the quadrotor at horizon 128: S streamed in panels on
+    the card) and B = 8447 at D = 200 (one short of 64 x 132, a batch no
+    Pallas tile divides). The port's plain version against the JAX loop
+    path on the same f32 QP, within 1e-6 + 1e-7 * max|g|: about one f32
+    rounding of the largest |g| (1.4e3 at horizon 50, 1.9e5 at 128), the
+    scale of the right-hand sides whose products the two libraries sum in
+    other orders."""
+    if case == "D=1":
+        jq = _one_input_qp(1)
+        x = np.random.default_rng(5).uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
+        u_min, u_max = np.array([-0.5]), np.array([0.5])
+    else:
+        # at the controller's dt (entry.make_controller); at 0.05, horizon 128
+        # leaves cond(H + rho I) above the Cholesky switch
+        jq, _ = _both_qps(128 if case == "D=512" else 50, rho=8.0, dtype="f32", dt=0.02)
+        x = np.random.default_rng(B).uniform(-0.3, 0.3, (B, 12)).astype(np.float32)
+        u_min, u_max = U_MIN, U_MAX
+    assert jq.N * jq.m == int(case.split(",")[0][2:])
+    got, want = _fused_vs_jax_loop(jq, x, u_min, u_max)
+    assert got.shape == (B, jq.N, jq.m) and np.isfinite(got).all()
+    assert (np.isclose(want, u_max) | np.isclose(want, u_min)).any()  # a bound binds
+    g = x.astype(np.float64) @ np.asarray(jq.M, np.float64).T
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 + 1e-7 * np.abs(g).max())
 
 
 def test_fused_admm_refuses_non_cpu_non_cuda_tensors():
@@ -199,3 +247,19 @@ def test_fused_admm_gate_respects_the_kernel_width():
                       iters=6, alpha=1.6)
     assert tuple(U.shape) == (5, 150, 4) and torch.isfinite(U).all()
     np.testing.assert_allclose(U.numpy(), np.asarray(Uj), rtol=0, atol=1e-8)  # f64 loop paths
+
+
+def test_admm_design_probe_needs_the_card():
+    """``benchmarks/exp_admm.py`` measures K1's tile designs on the card
+    only: its run refuses without a CUDA device, its design wrapper refuses
+    CPU tensors instead of falling back."""
+    from strided_tpu_torch.benchmarks import exp_admm
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        exp_admm.run(["k1"], batch=64)
+    g, z0, S, lo, hi = (torch.as_tensor(a) for a in _admm_inputs(4, 8, seed=1))
+    with pytest.raises(ValueError, match="CUDA"):
+        exp_admm.admm_design("t8x4", g, z0, S, lo, hi)
+    assert set(exp_admm.variants()) == {"k1", *exp_admm.DESIGNS, "ring32", "ring64"}
