@@ -9,7 +9,8 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 1. device: a CUDA device is required; prints its name and power limit;
 2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc, and
    prints ptxas's registers, stack frame and spills of every K1, K3 and K4
-   kernel; K1's 64-row instance (the main path's) must not spill;
+   kernel; K1's 64-row instance (the main path's) and every instance of K3's
+   program kernel must not spill;
 3. kernel vs plain: the fused-ADMM kernel against its plain PyTorch version
    on the same inputs, and both against the same iterations in f64: the
    main-path QP (D=200) at B = 16384, at 64 * #SMs +- 1 (one row past or
@@ -41,23 +42,29 @@ Drives the port's main path, one closed-loop step of the scenario-batched
    through the stream reduction; ``permutedims_into`` of an 8192^2
    transpose and a 64x128x64x128 permute, the scrambled map
    ``smap(x*3 + y, v.T, w)`` and (``kernel_reductions`` on) the int32
-   ``out = 3*old + sum over axis 0`` through the tile executor. Each checks
-   the dispatch record, and the result against the kernel's plain PyTorch
-   version on the same inputs (bit-exact, except f32 sums: 1e-6 * rows *
-   max|a|, the summation order differs); the launch counts, and K3's and
-   K4's by the kernel each launcher reports it ran, are read for this phase
-   alone; then coverage off the main path: every program op through K4
-   (f32, bf16), bodies wider than ``ewise.CREG`` registers through K4's
-   scalar interpreter, K4's per-element maps; K3 with every fold on f32,
-   bf16 and int32 rows that are and are not whole 16-byte runs, and bodies
-   of 1, 3 and 5 registers, f32- and int32-valued;
+   ``out = 3*old + sum over axis 0`` through the tile executor, and
+   ``smean(v, 0)`` through K3's program kernel. Each checks the dispatch
+   record, and the result against the kernel's plain PyTorch version on the
+   same inputs (bit-exact, except f32 sums: 1e-6 * rows * max|f(a)|, the
+   summation order differs); the launch counts, and K3's and K4's by the
+   kernel each launcher reports it ran (for K3 with its width), are read
+   for this phase alone; then coverage off the main path: every program op
+   through K4 (f32, bf16), bodies wider than ``ewise.CREG`` registers
+   through K4's scalar interpreter, K4's per-element maps; K3 with every
+   fold on f32, bf16 and int32 rows that are and are not whole 16-byte
+   runs, and every program kernel: bodies of 1, 2, 3 and 5 registers on
+   f32, bf16 and int32 leaves, float- and int-valued, every fold, on 8
+   columns a thread and on one (ragged rows, an unaligned base);
 9. engine times: each kernel's wrapper against its plain version, in turns
    (kernel, plain, plain, kernel; with the one PyTorch call that computes
    the same function inside the turns where there is one), with GB/s; K2
    also at 1024^2 and 2048^2, the data for re-setting the TPU-valued size
    gates; the flagship through its entry point (``st.to_array((v + v.T) /
    2)``, host work included) against eager ``(a + a.T) / 2``; K3's f32, max,
-   int32, bf16 and program cases and K4's maps on the staged 8192^2 layout
+   int32 and bf16 sums, ``st.smean(v, 0)`` (f32, bf16) against ``a.mean(0)``,
+   programs of 3 and 5 registers, an int32 ``t*3 + 1``, an instruction
+   ladder (0, 1, 2, 3, 9), four of those programs once more on one column
+   a thread (an unaligned base), and K4's maps on the staged 8192^2 layout
    (the instruction ladder, bf16, int32 ``where``, the scalar interpreter),
    each checked against its plain version first, and timed eagerly (every
    ``ms`` of the JSON line is an eager time) and as device time alone
@@ -161,11 +168,17 @@ def main() -> None:
     t = time.perf_counter()
     _build.load_library()
     print(f"[2 build] nvcc sm_90a: {time.perf_counter() - t:.1f} s")
-    main_k1 = [spill for src, name, _regs, spill in ptxas_report()
+    report = ptxas_report()
+    main_k1 = [spill for src, name, _regs, spill in report
                if src == "fused_admm" and K1_MAIN_INSTANCE in name]
     if main_k1 != [0]:
         raise RuntimeError(f"ptxas: the main path's {K1_MAIN_INSTANCE} is missing or spills "
                            f"(spill stores {main_k1})")
+    k3_programs = {name: spill for src, name, _regs, spill in report
+                   if src == "stream_reduce" and "reduce_program" in name}
+    if len(k3_programs) != K3_PROGRAM_INSTANCES or any(k3_programs.values()):
+        raise RuntimeError(f"ptxas: expected {K3_PROGRAM_INSTANCES} reduce_program instances "
+                           f"and no spills, got {k3_programs}")
 
     rho, alpha, iters = 8.0, 1.6, 6
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
@@ -269,6 +282,9 @@ def main() -> None:
 
 # the main path's K1 instance (8 x 8 thread tiles, g in registers), as ptxas names it
 K1_MAIN_INSTANCE = "fused_admm_kernelILi8ELi8ELi8ELb1E"
+# K3's program kernels: float or int results x the register file (1, 2, 4 or
+# the scalar interpreter's) on 8 columns a thread, and (2, 4 or scalar) on one
+K3_PROGRAM_INSTANCES = 14
 
 
 def k1_times(dev, ctrl, rng, batch, card, *, rho, alpha, iters) -> dict:
@@ -472,13 +488,17 @@ def _coverage(dev, gen) -> None:
 def _k3_coverage(dev, gen) -> None:
     """Phase 8, K3 off the main path: every fold on f32, bf16 and int32
     operands whose rows are whole 16-byte runs (3000 columns: 8 columns a
-    thread) and whose rows are not (3001: one column a thread); then bodies
-    of 1, 3 and 5 registers (the amortized interpreter's register files of
-    2 and 4, and the scalar interpreter), f32- and int32-valued. Each against its
-    plain version, with the kernel the launcher reports it ran. Exact for
-    min, max and int32 (wrapping, so any order); a float sum within 1e-6 *
-    rows * max|f(a)| and a product within 1e-6 * rows * max|result| (another
-    order), plus one bf16 rounding of the result for bf16."""
+    thread) and whose rows are not (3001: one column a thread); then every
+    program kernel: bodies of 1, 2, 3 and 5 registers (register files of 1
+    (8 columns a thread only), 2 and 4, and the scalar interpreter) on
+    f32, bf16 and int32 leaves, float- and int-valued, with every fold, on 8
+    columns a thread (3000 columns) and one (3001 columns, and 3000 on a
+    base that is not 16-byte aligned). Each against its plain version, with
+    the kernel and width the launcher reports it ran. Exact for min, max and
+    int32 (wrapping, so any order); a float sum within 1e-6 * rows *
+    max|f(a)| and a product within 1e-6 * rows * max|result| (another
+    order), plus two bf16 roundings of the result for bf16. Products take
+    the first 24 rows of operands near 1, so that they stay finite."""
     from strided_tpu_torch.core import ewise, stream_reduce as sr
 
     f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
@@ -503,26 +523,45 @@ def _k3_coverage(dev, gen) -> None:
             raise RuntimeError(f"stream_reduce {what}: off by {e:.3e} (limit {lim:g}), or ran {ran}")
 
     for cols in (3000, 3001):
+        width = "vector" if cols == 3000 else "column"
         for fold, red in folds.items():
             # factors near 1 keep a float product of 1000 rows finite; odd
             # ints keep an int32 product from collapsing to 0
             zf = (1 + z[:, :cols] / 64) if fold == "prod" else z[:, :cols] * 4
             for a in (zf.contiguous(), zf.to(bf16), (z[:, :cols] * 4).int() * 2 + 1):
                 prog = ewise.trace(lambda t: t, [a.dtype], out_dtype=a.dtype)
-                check(f"{fold} identity 1000x{cols} {a.dtype}", a, prog, red, "identity")
-    bodies = [("t*3 + 1", lambda t: t * 3 + 1, "amortized"),
-              ("(t+1)*(t+2) + t*3", lambda t: (t + 1) * (t + 2) + t * 3, "amortized"),
-              ("t*0.5 + 1", lambda t: t * 0.5 + 1, "amortized"),
-              ("wide", lambda t: wide_body(t, t), "scalar")]
-    for dtype, a in ((f32, z * 4), (i32, (z * 10).int())):
-        for name, f, path in bodies:
-            if dtype == i32 and name == "t*0.5 + 1":
-                continue  # a float result
-            prog = ewise.trace(f, [dtype], out_dtype=dtype)
-            n_reg = ewise.compact(prog).n_reg
-            for fold in ("sum", "max"):
-                check(f"{fold} of {name} ({n_reg} registers) 1000x3001 {dtype}", a, prog,
-                      folds[fold], path)
+                check(f"{fold} identity 1000x{cols} {a.dtype}", a, prog, red, f"identity/{width}")
+    bodies = [("t*3 + 1", lambda t: t * 3 + 1), ("(t*3 + 1)*t", lambda t: (t * 3 + 1) * t),
+              ("(t+1)*(t+2) + t*3", lambda t: (t + 1) * (t + 2) + t * 3),
+              ("wide", lambda t: wide_body(t, t))]
+    leaves = [  # (what, operand, near 1 for products, float-valued body on it)
+        ("f32", z * 4, z / 8, lambda f: f),
+        ("bf16", (z * 4).to(bf16), (z / 8).to(bf16), lambda f: f),
+        ("int32 -> f32", (z * 10).int(), (z * 2).int(), lambda f: lambda t: f(t * 0.0625)),
+        ("int32", (z * 10).int(), (z * 10).int() | 1, lambda f: f),
+    ]
+    layouts = [("1000x3000", lambda x: x[:, :3000].contiguous(), "vector"),
+               ("1000x3001", lambda x: x, "column"),
+               ("1000x3000 unaligned", lambda x: _unaligned(x[:, :3000]), "column")]
+    for lname, layout, width in layouts:
+        for leaf, x, x1, valued in leaves:
+            a, a1 = layout(x), layout(x1)[:24]
+            for name, f in bodies:
+                prog = ewise.trace(valued(f), [a.dtype])
+                n_reg = ewise.compact(prog).n_reg
+                kernel = "amortized" if n_reg <= ewise.CREG else "scalar"
+                for fold, red in folds.items():
+                    check(f"{fold} of {name} ({n_reg} registers) {lname} {leaf} -> "
+                          f"{prog.out_dtype}", a1 if fold == "prod" else a, prog, red,
+                          f"{kernel}/{width}")
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a contiguous tensor whose base is one element past a
+    16-byte boundary: K3 takes one column a thread there."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def engine_phases(dev, card):
@@ -571,24 +610,32 @@ def engine_phases(dev, card):
         got = st.to_array(expr)
         expect(spelling, le.LAST_EXPR_DISPATCH, "pair-kernel")
         check("pair_axpby", f"{spelling} {n}^2 {dt}", got, ks.pair_reference(a, **plain_kw[spelling]))
-    # K3, through the reductions
+    # K3, through the reductions: the identity sums and max, and smean, whose
+    # 1/n rides in the map (a program); each with the kernel the launcher
+    # reports it ran
     n = 8192
     a = randn(n, n)
     v = st.strided(a)
+    ai = randi(8192, 4096)
     tol = 1e-6 * n * a.abs().max().item()
-    for what, call, want, atol in (
-        ("ssum(v, axis=0) 8192^2 f32", lambda: st.ssum(v, axis=0), a.sum(0, keepdim=True), tol),
+    mean = sr.stream_reduce_reference(a, ewise.trace(lambda x: x * (1.0 / n), [torch.float32],
+                                                     out_dtype=torch.float32), sr.RED_SUM)
+    for what, call, want, atol, path in (
+        ("ssum(v, axis=0) 8192^2 f32", lambda: st.ssum(v, axis=0), a.sum(0, keepdim=True), tol,
+         "identity/vector"),
         ("smax(transpose(v), axis=1) 8192^2 f32", lambda: st.smax(st.transpose(v), axis=1),
-         a.amax(0).reshape(n, 1), 0.0),
+         a.amax(0).reshape(n, 1), 0.0, "identity/vector"),
+        ("ssum(int32 8192x4096, axis=0)", lambda: st.ssum(st.strided(ai), axis=0),
+         ai.sum(0, keepdim=True, dtype=torch.int32), 0.0, "identity/vector"),
+        ("smean(v, 0) 8192^2 f32", lambda: st.smean(v, 0), mean.reshape(1, n),
+         1e-6 * n * (a.abs().max().item() / n), "amortized/vector"),
     ):
         ks.LAST_REDUCE_DISPATCH = ""
+        before = dict(sr.PATHS)
         got = st.materialize(call())
         expect(what, ks.LAST_REDUCE_DISPATCH, "stream-kernel")
         check("stream_reduce", what, got, want, atol)
-    ai = randi(8192, 4096)
-    got = st.materialize(st.ssum(st.strided(ai), axis=0))
-    expect("int32 ssum", ks.LAST_REDUCE_DISPATCH, "stream-kernel")
-    check("stream_reduce", "ssum(int32 8192x4096, axis=0)", got, ai.sum(0, keepdim=True, dtype=torch.int32))
+        expect(f"{what}: K3's path", [q for q in sr.PATHS if sr.PATHS[q] != before[q]], [path])
     # K4, through permutedims_into, smap and (forced) mapreducedim_into
     out = st.strided(torch.empty(n, n, device=dev))
     ec.LAST_PLAN.clear()
@@ -621,8 +668,10 @@ def engine_phases(dev, card):
                 "tile_executor": ec.LAUNCHES}
     print(f"[8 engine] launches on the main path: {launches}; K3 by path {sr.PATHS}, "
           f"K4 maps by interpreter {ec.MAP_PATHS}")
-    if sr.PATHS["identity"] < 1 or ec.MAP_PATHS["amortized"] < 1:
-        raise RuntimeError("the main path did not run K3's identity or K4's amortized map")
+    if (sr.PATHS["identity/vector"] < 1 or sr.PATHS["amortized/vector"] < 1
+            or ec.MAP_PATHS["amortized"] < 1):
+        raise RuntimeError("the main path did not run K3's identity and vector program kernels "
+                           "or K4's amortized map")
     for name, count in launches.items():
         if count < 1:
             raise RuntimeError(f"{name} was not launched on the engine's main path")
@@ -698,54 +747,113 @@ def engine_phases(dev, card):
 
 def reduce_times(dev, gen, report, n=8192):
     """Phase 9, K3: the f32 axis-0 sum (the JSON line's case), the axis-0
-    max, the int32, bf16 and f32-with-a-program sums, each checked against
-    its plain version, then timed in turns against it and, where one call
-    computes the same function, that call: called eagerly (as every kernel
-    of the JSON line is timed) and as device time alone through CUDA graphs,
-    with the wrapper's host time a call beside them. Returns the f32 sum's
-    eager and device times and every case's kernel ms both ways."""
+    max, the int32 and bf16 sums; then programs: ``smean(v, 0)`` in f32 and
+    bf16 through the public entry point, the wrapper on ``t*0.5 + 1``, bodies
+    of 3 and 5 registers (the scalar interpreter), an int32 ``t*3 + 1``, and
+    an instruction ladder (bodies of 1, 2, 3 and 9 instructions; the
+    identity sum is its 0); then ``t*0.5 + 1``, the 3-register body, the
+    9-instruction rung and the 5-register body once more on the same values
+    on a base one element past a 16-byte boundary, where the kernel takes
+    one column a thread. Each is checked against its plain version, with
+    the kernel and width the launcher reports it ran (8 columns a thread
+    wherever ``stream_reduce.split`` gives them, and for ``t*0.5 + 1`` and
+    ``st.smean`` in f32 always), then timed in turns
+    against it and, where one call computes the same function, that call:
+    called eagerly (as every kernel of the JSON line is timed) and as device
+    time alone through CUDA graphs, with the host time a call beside them.
+    Returns the f32 sum's eager and device times and every case's times."""
+    import strided_tpu_torch as st
     from strided_tpu_torch.core import ewise, stream_reduce as sr
 
     a = torch.randn(n, n, device=dev, generator=gen)
     a16 = a.bfloat16()
     ai = torch.randint(-9, 9, (n, n // 2), device=dev, dtype=torch.int32, generator=gen)
+    va, va16 = st.strided(a), st.strided(a16)
     f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
-    ident = {d: ewise.trace(lambda t: t, [d], out_dtype=d) for d in (f32, bf16, i32)}
-    affine = ewise.trace(lambda t: t * 0.5 + 1, [f32], out_dtype=f32)
-    cases = [  # (name, operand, program, fold, bytes, one call or None)
-        (f"sum axis 0, {n}^2 f32", a, ident[f32], sr.RED_SUM, 4 * a.numel(), lambda: a.sum(0)),
-        (f"max axis 0, {n}^2 f32", a, ident[f32], sr.RED_MAX, 4 * a.numel(), lambda: a.amax(0)),
-        (f"sum axis 0, int32 {n}x{n // 2}", ai, ident[i32], sr.RED_SUM, 4 * ai.numel(),
-         lambda: ai.sum(0, dtype=torch.int32)),
-        (f"sum axis 0, {n}^2 bf16", a16, ident[bf16], sr.RED_SUM, 2 * a16.numel(),
-         lambda: a16.sum(0)),
-        (f"sum axis 0 of t*0.5 + 1, {n}^2 f32", a, affine, sr.RED_SUM, 4 * a.numel(), None),
-    ]
-    out, first = {}, None
-    for name, x, prog, red, nbytes, lib in cases:
-        k, p = sr.stream_reduce(x, prog, red), sr.stream_reduce_reference(x, prog, red)
-        e = _max_err(k, p)
+    prog = lambda f, d=f32: ewise.trace(f, [d], out_dtype=d)  # noqa: E731
+    ident = {d: prog(lambda t: t, d) for d in (f32, bf16, i32)}
+    mean = {d: prog(lambda t: t * (1.0 / n), d) for d in (f32, bf16)}
+    ladder = {1: ("t*0.5", lambda t: t * 0.5), 2: ("t*0.5 + 1", lambda t: t * 0.5 + 1),
+              3: ("(t*0.5 + 1)*t", lambda t: (t * 0.5 + 1) * t),
+              9: ("((t*3 + 1)*t - t*2) * (|t| + 1) + 1",
+                  lambda t: ((t * 3 + 1) * t - t * 2) * (abs(t) + 1) + 1)}
+    cases = [  # (name, operand, program, fold, one call or None, entry-point call or None)
+        (f"sum axis 0, {n}^2 f32", a, ident[f32], sr.RED_SUM, lambda: a.sum(0), None),
+        (f"max axis 0, {n}^2 f32", a, ident[f32], sr.RED_MAX, lambda: a.amax(0), None),
+        (f"sum axis 0, int32 {n}x{n // 2}", ai, ident[i32], sr.RED_SUM,
+         lambda: ai.sum(0, dtype=torch.int32), None),
+        (f"sum axis 0, {n}^2 bf16", a16, ident[bf16], sr.RED_SUM, lambda: a16.sum(0), None),
+        (f"sum axis 0 of t*0.5 + 1, {n}^2 f32", a, prog(ladder[2][1]), sr.RED_SUM, None, None),
+        (f"st.smean(v, 0), {n}^2 f32", a, mean[f32], sr.RED_SUM, lambda: a.mean(0),
+         lambda: st.smean(va, 0)),
+        (f"st.smean(v, 0), {n}^2 bf16", a16, mean[bf16], sr.RED_SUM, lambda: a16.mean(0),
+         lambda: st.smean(va16, 0)),
+        (f"sum axis 0 of (t+1)*(t+2) + t*3, {n}^2 f32", a,
+         prog(lambda t: (t + 1) * (t + 2) + t * 3), sr.RED_SUM, None, None),
+        (f"sum axis 0 of the wide body, {n}^2 f32", a, prog(lambda t: wide_body(t, t)),
+         sr.RED_SUM, None, None),
+        (f"sum axis 0 of t*3 + 1, int32 {n}x{n // 2}", ai, prog(lambda t: t * 3 + 1, i32),
+         sr.RED_SUM, None, None),
+    ] + [(f"sum axis 0 of {name}, {n}^2 f32 (ladder)", a, prog(f), sr.RED_SUM, None, None)
+         for k, (name, f) in ladder.items() if k != 2]
+    au = _unaligned(a)
+    cases += [(f"sum axis 0 of {name}, {n}^2 f32, one column a thread (unaligned base)", au,
+               prog(f), sr.RED_SUM, None, None)
+              for name, f in (("t*0.5 + 1", ladder[2][1]),
+                              ("(t+1)*(t+2) + t*3", lambda t: (t + 1) * (t + 2) + t * 3),
+                              (ladder[9][0], ladder[9][1]),
+                              ("the wide body", lambda t: wide_body(t, t)))]
+    rungs = {cases[0][0], cases[4][0], *(c[0] for c in cases if "(ladder)" in c[0])}
+    out, first, steps = {}, None, []
+    for name, x, p, red, lib, call in cases:
+        kernel = call or (lambda x=x, p=p, red=red: sr.stream_reduce(x, p, red))
+        plain = lambda x=x, p=p, red=red: sr.stream_reduce_reference(x, p, red)  # noqa: E731
+        before = dict(sr.PATHS)
+        k = kernel()
+        k = k if isinstance(k, torch.Tensor) else st.materialize(k).reshape(-1)
+        want = plain()
+        torch.cuda.synchronize()
+        ran = [q for q in sr.PATHS if sr.PATHS[q] != before[q]]
+        e = _max_err(k, want)
         # exact for max and int32; a float sum within 1e-6 * rows * max|f(a)|
-        # (another order), and a bf16 result within one rounding of it
+        # (another order), and a bf16 result within two roundings of it
         lim = 0.0
-        if red != sr.RED_MAX and x.dtype != torch.int32:
-            lim = 1e-6 * x.shape[0] * ewise.evaluate(prog, [x]).float().abs().max().item()
-            if x.dtype == bf16:
-                lim += 2 * torch.finfo(bf16).eps * p.float().abs().max().item()
-        print(f"[9 stream_reduce] {name}: |kernel - plain| {e:.3e} (limit {lim:g})")
-        if not e <= lim:
-            raise RuntimeError(f"stream_reduce {name}: off its plain version by {e:.3e}")
-        kernel = lambda x=x, prog=prog, red=red: sr.stream_reduce(x, prog, red)  # noqa: E731
-        plain = lambda x=x, prog=prog, red=red: sr.stream_reduce_reference(x, prog, red)  # noqa: E731
+        if red != sr.RED_MAX and p.out_dtype != i32:
+            lim = 1e-6 * x.shape[0] * ewise.evaluate(p, [x]).float().abs().max().item()
+            if p.out_dtype == bf16:
+                lim += 2 * torch.finfo(bf16).eps * want.float().abs().max().item()
+        cp = ewise.compact(p)
+        vec = sr.split(x, len(cp.instrs), cp.n_reg)[0]
+        path = ("identity" if not cp.instrs else "amortized" if cp.n_reg <= ewise.CREG
+                else "scalar") + ("/vector" if vec == sr.NV else "/column")
+        if x is a and ("t*0.5 + 1" in name or name == f"st.smean(v, 0), {n}^2 f32") \
+                and path != "amortized/vector":
+            raise RuntimeError(f"stream_reduce {name}: split gives {path}, not 16-byte loads")
+        print(f"[9 stream_reduce] {name}: {len(cp.instrs)} instructions, {cp.n_reg} registers, "
+              f"ran {ran}: |kernel - plain| {e:.3e} (limit {lim:g})")
+        if not e <= lim or ran != [path]:
+            raise RuntimeError(f"stream_reduce {name}: off its plain version by {e:.3e}, or ran "
+                               f"{ran}, not {path}")
         eager = _turns(kernel, plain, reps=100, library=lib)
         device = _turns(kernel, plain, reps=20, library=lib, graph=True)
         host = _host_ms(kernel)
+        nbytes = x.element_size() * x.numel() + p.out_dtype.itemsize * x.shape[1]
         what = f"stream_reduce {name}, bound {bound(nbytes)['bound_ms']:.4f} ms"
-        report(f"{what}, called eagerly (the wrapper's host time {host:.4f} ms a call)", nbytes,
-               eager)
+        report(f"{what}, called eagerly (host time {host:.4f} ms a call)", nbytes, eager)
         report(f"{what}, device time (CUDA graph)", nbytes, device)
-        out[name] = {"ms": eager[0], "device_ms": device[0], "host_ms": host}
+        out[name] = {"ms": eager[0], "device_ms": device[0], "host_ms": host,
+                     "plain_ms": eager[1], "device_plain_ms": device[1],
+                     "library_ms": eager[3] if lib else None,
+                     "device_library_ms": device[3] if lib else None,
+                     "bound_ms": bound(nbytes)["bound_ms"], "path": path}
         first = first or (eager, device)
+        if name in rungs:
+            steps.append((len(cp.instrs), cp.n_reg, device[0]))
+    programs = [(c, t) for c, _r, t in steps if c > 0]
+    slope, icpt = np.polyfit(*np.array(programs).T, 1)
+    print(f"[9 stream_reduce] ladder (instructions, registers, device ms), f32 {n}^2 sums: "
+          f"{sorted(steps)}; least squares over the programs {icpt:.4f} ms + {slope:.4f} ms "
+          f"per instruction")
     return first, out
 
 

@@ -27,6 +27,8 @@ import operator
 import torch
 
 from ..config import get_config
+from . import ewise, stream_reduce as sr
+from .regularize import decompose
 
 __all__ = ["symmetrize", "pair_axpby", "pair_reference", "pair_kernel_tile",
            "pair_fallback_call", "try_stream_reduce", "LAUNCHES"]
@@ -171,20 +173,30 @@ LAST_REDUCE_DISPATCH: str = ""
 
 
 def _stream_red(op):
-    from .stream_reduce import RED_SUM, RED_PROD, RED_MIN, RED_MAX
-
-    for ops, code in (((operator.add, torch.add), RED_SUM),
-                      ((operator.mul, torch.mul), RED_PROD),
-                      ((torch.minimum,), RED_MIN), ((torch.maximum,), RED_MAX)):
+    for ops, code in (((operator.add, torch.add), sr.RED_SUM),
+                      ((operator.mul, torch.mul), sr.RED_PROD),
+                      ((torch.minimum,), sr.RED_MIN), ((torch.maximum,), sr.RED_MAX)):
         if any(op is o for o in ops):
             return code
     return None
 
 
-def try_stream_reduce(total_f, op, view, axes, rdt):
+def pure(f, key):
+    """Mark ``f``, a map the engine builds, as a function of ``key`` alone
+    (for example ``("scale", 0.5)`` for ``x * 0.5``): maps with equal keys
+    compute the same values, so :func:`try_stream_reduce` plans a reduction
+    of them once per key, fold, layout and gates, not once per call."""
+    f.plan_key = key
+    return f
+
+
+_PLANS: dict = {}  # K3 plans of marked maps (pure), by map, fold, layout and gates
+
+
+def try_stream_reduce(total_f, op, view, axes):
     """Run a partial reduction through K3 when the layout qualifies; returns
-    the dense result in the logical kept shape (reduced dims dropped), or
-    None.
+    the dense result in the logical kept shape (reduced dims dropped), of
+    ``total_f``'s result dtype, or None.
 
     Qualifies: one view that is a bijective dense relabeling of its whole
     parent (lazy transposes and permutes included); the reduced logical axes
@@ -193,55 +205,78 @@ def try_stream_reduce(total_f, op, view, axes, rdt):
     to an elementwise program; at least ``min_stream_reduce_elements``. The
     TPU's relayout rules (a single 128-multiple minor kept dim, middle dims
     multiples of 8, a slab height dividing the row count) do not apply: the
-    kernel takes any (N, M)."""
-    from .regularize import decompose
-    from . import ewise
-    from .stream_reduce import stream_reduce
+    kernel takes any (N, M).
 
+    The plan (the program traced, its result dtype and the operand's
+    layout) depends on nothing else, so for a map the engine marked
+    (:func:`pure`: ``smean``'s scale, the plain reductions' identity) it is
+    made once per map, fold, layout and gates, and then only launched."""
     cfg = get_config()
     if not (cfg.use_kernels and cfg.stream_reductions):
         return None
-    ok = (torch.float32, torch.bfloat16, torch.int32)
-    if view.conj or view.dtype not in ok or rdt not in ok:
+    key = getattr(total_f, "plan_key", None)
+    if key is None:
+        plan = _stream_plan(total_f, op, view, axes, cfg)
+    else:
+        key = (key, op, view.shape, view.strides, view.offset, view.conj, view.dtype,
+               view.parent.numel(), tuple(axes), cfg.min_stream_reduce_elements)
+        plan = _PLANS.get(key)
+        if plan is None:
+            if len(_PLANS) > 4096:
+                _PLANS.clear()
+            plan = _PLANS[key] = _stream_plan(total_f, op, view, axes, cfg)
+    if not plan:
         return None
-    if view.size < cfg.min_stream_reduce_elements:
-        return None
-    red = _stream_red(op)
-    if red is None:
-        return None
-    try:
-        prog = ewise.trace(total_f, [view.dtype], out_dtype=rdt)
-    except ewise.Ineligible as e:
-        _log.debug("stream reduction declined: %s", e)
-        return None
-    dec = decompose(view.shape, view.strides, view.offset)
-    if dec.overlapping or any(dec.flipped) or dec.min_offset != 0:
-        return None
-    if len(dec.real_axes) != sum(1 for d in view.shape if d != 1):
-        return None
-    n = len(dec.sizes)
-    if n == 0 or dec.strides[-1] != 1:
-        return None
-    for k in range(n - 1):
-        if dec.strides[k] != dec.sizes[k + 1] * dec.strides[k + 1]:
-            return None
-    if math.prod(dec.sizes) != view.parent.numel():
-        return None
-    axes = set(axes)
-    red_phys = [k for k, a in enumerate(dec.real_axes) if a in axes]
-    kept_phys = [k for k, a in enumerate(dec.real_axes) if a not in axes]
-    if not red_phys or not kept_phys or red_phys != list(range(len(red_phys))):
-        return None
-    N = math.prod(dec.sizes[k] for k in red_phys)
-    M = math.prod(dec.sizes[k] for k in kept_phys)
-    out = stream_reduce(view.parent.reshape(N, M), prog, red)
+    N, M, prog, red, kept_shape, order = plan
+    out = sr.stream_reduce(view.parent.reshape(N, M), prog, red)
     # physical kept order -> ascending logical order (M elements, cheap)
-    out = out.reshape(tuple(dec.sizes[k] for k in kept_phys))
-    kept_axes = [dec.real_axes[k] for k in kept_phys]
-    order = sorted(range(len(kept_axes)), key=lambda i: kept_axes[i])
-    if order != list(range(len(order))):
+    out = out.reshape(kept_shape)
+    if order is not None:
         out = out.permute(order).contiguous()
     global LAST_REDUCE_DISPATCH
     LAST_REDUCE_DISPATCH = "stream-kernel"
     _log.debug("sreduce_dims: leading-axis reduction (N=%d, M=%d) -> stream_reduce", N, M)
     return out
+
+
+def _stream_plan(total_f, op, view, axes, cfg):
+    """``(N, M, program, fold, kept shape, kept permutation or None)`` of a
+    reduction K3 takes (see :func:`try_stream_reduce`), else False."""
+    ok = (torch.float32, torch.bfloat16, torch.int32)
+    if view.conj or view.dtype not in ok or view.size < cfg.min_stream_reduce_elements:
+        return False
+    red = _stream_red(op)
+    if red is None:
+        return False
+    rdt = ewise.result_dtype(total_f, [view.dtype])
+    if rdt not in ok:
+        return False
+    try:
+        prog = ewise.trace(total_f, [view.dtype], out_dtype=rdt)
+    except ewise.Ineligible as e:
+        _log.debug("stream reduction declined: %s", e)
+        return False
+    dec = decompose(view.shape, view.strides, view.offset)
+    if dec.overlapping or any(dec.flipped) or dec.min_offset != 0:
+        return False
+    if len(dec.real_axes) != sum(1 for d in view.shape if d != 1):
+        return False
+    n = len(dec.sizes)
+    if n == 0 or dec.strides[-1] != 1:
+        return False
+    for k in range(n - 1):
+        if dec.strides[k] != dec.sizes[k + 1] * dec.strides[k + 1]:
+            return False
+    if math.prod(dec.sizes) != view.parent.numel():
+        return False
+    axes = set(axes)
+    red_phys = [k for k, a in enumerate(dec.real_axes) if a in axes]
+    kept_phys = [k for k, a in enumerate(dec.real_axes) if a not in axes]
+    if not red_phys or not kept_phys or red_phys != list(range(len(red_phys))):
+        return False
+    N = math.prod(dec.sizes[k] for k in red_phys)
+    M = math.prod(dec.sizes[k] for k in kept_phys)
+    kept_axes = [dec.real_axes[k] for k in kept_phys]
+    order = sorted(range(len(kept_axes)), key=lambda i: kept_axes[i])
+    return (N, M, prog, red, tuple(dec.sizes[k] for k in kept_phys),
+            None if order == list(range(len(order))) else order)

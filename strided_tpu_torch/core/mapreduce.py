@@ -25,8 +25,9 @@ import torch
 
 from .view import StridedView, StridedLayoutError, broadcast_to, held_device, strided
 from .regularize import materialize, scatter_into
-from .lazy_expr import as_expr_parts
+from .lazy_expr import as_expr_parts, identity_f
 from .ewise import result_dtype
+from .kernels_special import pure
 
 _dispatch_log = logging.getLogger("strided_tpu_torch.dispatch")
 
@@ -311,24 +312,24 @@ def sreduce_dims(f: Callable, op: Callable, v, axes, init=None) -> StridedView:
 
     kernels_special.LAST_REDUCE_DISPATCH = "xla"  # never stale
     g, leaves, shape = as_expr_parts(v)
-    total_f = lambda *arrs: f(g(*arrs))  # noqa: E731
+    total_f = f if g is identity_f else lambda *arrs: f(g(*arrs))  # noqa: E731
     ndim = len(shape)
     if isinstance(axes, int):
         axes = (axes,)
     axes = tuple(sorted(range(ndim)[a] for a in axes))
     bviews = broadcast_views(shape, leaves)
-    rdt = result_dtype(total_f, [b.dtype for b in bviews])
     out_shape = tuple(1 if i in axes else d for i, d in enumerate(shape))
     device = bviews[0].device
 
     if len(bviews) == 1 and tuple(bviews[0].shape) == tuple(shape):
-        res = kernels_special.try_stream_reduce(total_f, op, bviews[0], axes, rdt)
+        res = kernels_special.try_stream_reduce(total_f, op, bviews[0], axes)
         if res is not None:
             _dispatch_log.debug("sreduce_dims axes=%s -> stream_reduce", axes)
             if init is not None:
-                res = op(torch.as_tensor(init, dtype=rdt, device=device), res)
+                res = op(torch.as_tensor(init, dtype=res.dtype, device=device), res)
             return strided(res.reshape(out_shape))
 
+    rdt = result_dtype(total_f, [b.dtype for b in bviews])
     ident = reduce_identity(op, rdt)
     if init is not None:
         initop = lambda x: torch.full_like(x, init, dtype=rdt)  # noqa: E731
@@ -358,6 +359,9 @@ def mapreducedim_into(f, op, initop, out, *ins) -> StridedView:
 
 def _identity(x):
     return x
+
+
+pure(_identity, "identity")
 
 
 def _conv_reduce(op, v, axis, init=None):
@@ -394,4 +398,4 @@ def smean(v, axis=None):
     axes = (axis,) if isinstance(axis, int) else tuple(axis)
     axes = tuple(range(len(shape))[a] for a in axes)
     inv = 1.0 / math.prod(shape[a] for a in axes)
-    return sreduce_dims(lambda x: x * inv, torch.add, v, axes)
+    return sreduce_dims(pure(lambda x: x * inv, ("scale", inv)), torch.add, v, axes)

@@ -8,11 +8,13 @@
 // Every thread runs the same instruction sequence, so every switch below is
 // warp-uniform.
 //
-// Two interpreters. ew_run_v<R, E> runs each instruction over a thread's E
+// Three interpreters. ew_run_v<R, E> runs each instruction over a thread's E
 // elements (instruction outer, element inner), so its switch is taken once
 // per E elements, and keeps the register file as R x E values whose every
 // index is a compile-time constant: it lives in registers, never in local
-// memory. It takes programs with n_reg <= EW_CREG. ew_run, the scalar
+// memory. It takes programs with n_reg <= EW_CREG. ew_run_s<R, E> does the
+// same with operands picked by selects per element, not copied behind
+// branches (K3's kernels on 1 or 2 registers). ew_run, the scalar
 // interpreter, runs one element on a register array indexed at run time
 // (local memory) and takes any program; the kernels launch it where n_reg
 // is larger.
@@ -323,6 +325,134 @@ __device__ __forceinline__ void ew_run_v(const EwProgram& p, EwVal (&r)[R][E]) {
     if (I.op == EW_WHERE) ew_get(r, I.c, I, z);
     ew_apply<E>(I, x, y, z, x);  // the result in place of operand a
     ew_set(r, I.dst, x);
+  }
+}
+
+// The select interpreter: like ew_run_v, a program with n_reg <= R on E
+// elements at once with the register file in registers, but each operand
+// is picked from the R registers by selects element by element instead of
+// being copied out behind a branch, and the result written back the same
+// way. No E-wide operand copies are live, only the R x E file, and an
+// instruction costs one switch on its op; with R = 1 an operand is register
+// 0 or the immediate. The leaves are in r[0 .. n_in); read the output with
+// ew_sel(r, p.out, e).
+template <int R, int E>
+__device__ __forceinline__ EwVal ew_sel(const EwVal (&r)[R][E], int k, int e) {
+  EwVal v = r[0][e];
+#pragma unroll
+  for (int j = 1; j < R; ++j)
+    if (k == j) v = r[j][e];
+  return v;
+}
+
+template <int R, int E>
+__device__ __forceinline__ EwVal ew_sel(const EwVal (&r)[R][E], int k, EwVal imm, int e) {
+  return k == EW_IMM ? imm : ew_sel(r, k, e);
+}
+
+template <int R, int E>
+__device__ __forceinline__ void ew_put(EwVal (&r)[R][E], int k, int e, EwVal v) {
+  if constexpr (R == 1) {
+    r[0][e] = v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (k == j) r[j][e] = v;
+  }
+}
+
+#define EW_SCASE2(OP)                                                                \
+  case OP:                                                                           \
+    _Pragma("unroll") for (int e = 0; e < E; ++e)                                    \
+        ew_put(r, d, e, ew_op2<OP, T>(ew_sel(r, a, imm, e), ew_sel(r, b, imm, e)));  \
+    break;
+
+template <int R, int E, int T>
+__device__ __forceinline__ void ew_binary_s(int op, EwVal (&r)[R][E], int a, int b, int d,
+                                            EwVal imm) {
+  switch (op) {
+    EW_SCASE2(EW_ADD) EW_SCASE2(EW_SUB) EW_SCASE2(EW_MUL) EW_SCASE2(EW_DIV) EW_SCASE2(EW_POW)
+    EW_SCASE2(EW_MOD) EW_SCASE2(EW_MIN) EW_SCASE2(EW_MAX) EW_SCASE2(EW_LT) EW_SCASE2(EW_LE)
+    EW_SCASE2(EW_GT) EW_SCASE2(EW_GE) EW_SCASE2(EW_EQ) EW_SCASE2(EW_NE)
+    default: break;
+  }
+}
+#undef EW_SCASE2
+
+template <int R, int E>
+__device__ __forceinline__ void ew_run_s(const EwProgram& p, EwVal (&r)[R][E]) {
+#pragma unroll 1
+  for (int k = 0; k < p.n_instr; ++k) {
+    const EwInstr& I = p.ins[k];
+    const EwVal imm = ew_imm(I);
+    const int a = I.a, d = I.dst, t = I.type;
+    const bool fl = ew_is_float(t);
+    switch (I.op) {
+      case EW_CONST:
+#pragma unroll
+        for (int e = 0; e < E; ++e) ew_put(r, d, e, imm);
+        break;
+      case EW_CAST: {
+        const int from = I.c;
+#pragma unroll
+        for (int e = 0; e < E; ++e) ew_put(r, d, e, ew_cast(ew_sel(r, a, imm, e), from, t));
+        break;
+      }
+      case EW_DIVC: {
+        const float cf = I.cf;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          EwVal v;
+          v.f = ew_round(__fmul_rn(ew_sel(r, a, imm, e).f, cf), t);
+          ew_put(r, d, e, v);
+        }
+        break;
+      }
+      case EW_POWC: {
+        const float cf = I.cf;
+        const int ci = I.ci;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const EwVal x = ew_sel(r, a, imm, e);
+          EwVal v;
+          if (fl) v.f = ew_powc(x.f, cf, t);
+          else v.i = ew_ipow(x.i, ci);
+          ew_put(r, d, e, v);
+        }
+        break;
+      }
+      case EW_NEG:
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const EwVal x = ew_sel(r, a, imm, e);
+          EwVal v;
+          if (fl) v.f = -x.f;
+          else v.i = ew_wrap(0u - (uint32_t)x.i);
+          ew_put(r, d, e, v);
+        }
+        break;
+      case EW_ABS:
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const EwVal x = ew_sel(r, a, imm, e);
+          EwVal v;
+          if (fl) v.f = fabsf(x.f);
+          else v.i = x.i < 0 ? ew_wrap(0u - (uint32_t)x.i) : x.i;
+          ew_put(r, d, e, v);
+        }
+        break;
+      case EW_WHERE: {
+        const int b = I.b, c = I.c;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          ew_put(r, d, e, ew_sel(r, a, imm, e).i ? ew_sel(r, b, imm, e) : ew_sel(r, c, imm, e));
+        break;
+      }
+      default:
+        if (t == EW_F32) ew_binary_s<R, E, EW_F32>(I.op, r, a, I.b, d, imm);
+        else if (t == EW_BF16) ew_binary_s<R, E, EW_BF16>(I.op, r, a, I.b, d, imm);
+        else ew_binary_s<R, E, EW_I32>(I.op, r, a, I.b, d, imm);
+    }
   }
 }
 

@@ -201,6 +201,71 @@ def test_reductions_match_jax(name, dtype):
     assert trec == jrec
 
 
+PROGRAM_REDUCTIONS = {  # one leaf, a map that is not the identity: K3's program kernels
+    "smean axis 0": (lambda p, v: p.smean(v, axis=0), ("float32", "bfloat16")),
+    "sreduce_dims t*3 + 1": (lambda p, v: p.sreduce_dims(lambda t: t * 3 + 1, p.add, v, (0,)),
+                             ("float32", "bfloat16", "int32")),
+}
+
+
+@pytest.mark.parametrize("width", [256, 66, 257])
+@pytest.mark.parametrize("name,dtype", [(n, d) for n, (_, ds) in PROGRAM_REDUCTIONS.items()
+                                        for d in ds])
+def test_program_reductions_match_jax(name, dtype, width):
+    """A leading-axis reduction whose map is a program goes to K3 in the
+    port at every width (on the card 8 columns a thread where rows are whole
+    16-byte runs, 256; one column a thread at 66 and 257). The reference
+    streams widths that are multiples of 128 and gives the rest to XLA.
+    Tolerances: int32 exact; f32 1e-6 * rows * max|f(a)|; bf16 besides 4 bf16
+    ulps of max|out|, since the reference sums each 256-row slab and the
+    slabs in bf16 where the port sums in f32 and rounds once."""
+    fn, _ = PROGRAM_REDUCTIONS[name]
+    rows = 512
+    a = _inputs("int32" if dtype == "int32" else "float32", (rows, width))[0]
+    jv = jst.strided(jnp.asarray(a).astype(getattr(jnp, dtype)))
+    tv = tst.strided(torch.from_numpy(a).to(getattr(torch, dtype)))
+    _reset()
+    want = np.asarray(jst.to_array(fn(JAX, jv)).astype(np.float32 if dtype != "int32" else np.int32))
+    jrec = jks.LAST_REDUCE_DISPATCH
+    got = tst.to_array(fn(TORCH, tv))
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape == (1, width)
+    assert tks.LAST_REDUCE_DISPATCH == "stream-kernel"
+    assert jrec == ("stream-kernel" if width % 128 == 0 else "xla")
+    got = got.numpy() if dtype == "int32" else got.float().numpy()
+    if dtype == "int32":
+        np.testing.assert_array_equal(got, want)
+        return
+    a_max = float(np.abs(a).max())
+    f_max = a_max / rows if name.startswith("smean") else 3 * a_max + 1
+    atol = 1e-6 * rows * f_max
+    if dtype == "bfloat16":
+        atol += 4 * 2.0 ** -8 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_stream_plans_follow_layout_and_gates():
+    """K3's dispatch of a marked map (``smean``'s scale) is decided once per
+    map, fold, layout and gates: a transposed view, another size or a gate
+    moved between calls still gets its own decision and its own values."""
+    a = _inputs("float32", (512, 256))[0]
+    v = tst.strided(torch.from_numpy(a))
+    for view, axis, want in ((v, 0, a.mean(0)), (tst.transpose(v), 1, a.mean(0)),
+                             (tst.transpose(v), 0, a.mean(1)), (v, 0, a.mean(0))):
+        tks.LAST_REDUCE_DISPATCH = ""
+        got = tst.to_array(tst.smean(view, axis)).reshape(-1).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(a).max())
+        assert tks.LAST_REDUCE_DISPATCH == ("stream-kernel" if want.size == 256 else "xla")
+    tcfg.set_config(min_stream_reduce_elements=512 * 256 + 1)
+    tst.smean(v, 0)
+    assert tks.LAST_REDUCE_DISPATCH == "xla"
+    tcfg.set_config(min_stream_reduce_elements=1024)
+    tst.smean(v, 0)
+    assert tks.LAST_REDUCE_DISPATCH == "stream-kernel"
+    small = tst.strided(torch.from_numpy(a[:128].copy()))
+    np.testing.assert_allclose(tst.to_array(tst.smean(small, 0)).reshape(-1).numpy(),
+                               a[:128].mean(0), rtol=0, atol=1e-6 * np.abs(a).max())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 def test_sprod_matches_jax(dtype):
     rng = np.random.default_rng(5)

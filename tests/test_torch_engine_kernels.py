@@ -149,6 +149,36 @@ def test_row_chunks_fill_the_card_and_stay_deterministic():
     assert tsr.row_chunks(100, 8192) == (2, 64)  # one 64-row step and the rest
     assert tsr.row_chunks(65536, 64) == (256, 256)
     assert all(tsr.row_chunks(n, m)[0] >= 1 for n in (1, 7, 300) for m in (1, 33))
+    # a program's kernel on 8 columns a thread (3 blocks an SM): one wave too
+    assert tsr.row_chunks(8192, 8192, 8, 3 * tsr.SMS) == (12, 704)
+
+
+@pytest.mark.parametrize("n_instr,n_reg", [(0, 1), (1, 1), (3, 2), (5, 3), (9, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_every_program_takes_sixteen_byte_loads_where_rows_allow(dtype, n_instr, n_reg,
+                                                                 monkeypatch):
+    """The launch split asks the CUDA source (``kernel_shape``, here a
+    stand-in) for the width and blocks an SM of the kernel that will run,
+    telling it that the rows allow 16-byte loads when they are whole 16-byte
+    runs on an aligned base, for the identity program and any other alike,
+    and that ragged rows or an unaligned base do not; then it cuts one wave
+    of those blocks."""
+    asked = []
+
+    def shape(n_i, n_r, vec_ok):  # the launcher's answer: blocks vary with the program
+        asked.append((n_i, n_r, vec_ok))
+        return (tsr.NV if vec_ok else 1), 2 + n_r % 3
+
+    monkeypatch.setattr(tsr, "kernel_shape", shape)
+    per16 = 16 // dtype.itemsize
+    slots = (2 + n_reg % 3) * tsr.SMS
+    full = torch.zeros(1, 8192, dtype=dtype).expand(8192, 8192)
+    assert tsr.split(full, n_instr, n_reg) == (8, *tsr.row_chunks(8192, 8192, 8, slots))
+    assert tsr.split(torch.zeros(64, 2 * per16, dtype=dtype), n_instr, n_reg)[0] == 8
+    assert tsr.split(torch.zeros(64, 2 * per16 + 2, dtype=dtype), n_instr, n_reg)[0] == 1
+    unaligned = torch.zeros(64 * 2 * per16 + 1, dtype=dtype)[1:].view(64, 2 * per16)
+    assert tsr.split(unaligned, n_instr, n_reg) == (1, *tsr.row_chunks(64, 2 * per16, 1, slots))
+    assert asked == [(n_instr, n_reg, ok) for ok in (True, True, False, False)]
 
 
 def test_tile_executor_scrambled_copy_matches_pallas():

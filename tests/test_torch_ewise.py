@@ -99,24 +99,28 @@ def test_compaction_folds_constants_and_reuses_registers():
     assert where.n_reg == 2 and where.instrs[-1].c == ewise.IMM and where.instrs[-1].cf == 5.0
 
 
-SPLIT_SHAPES = [(8192, 8192, 8), (8192, 8192, 1), (8192, 4096, 8), (100, 8192, 1),
-                (65536, 64, 1), (1, 1, 1), (7, 33, 1), (300, 1, 1), (300, 520, 8),
-                (1000, 24, 8), (8192, 1 << 20, 8), (123457, 999, 1)]
+SPLIT_SHAPES = [pytest.param(N, M, vec, tsr.SLOTS, id=f"{N}-{M}-{vec}") for N, M, vec in (
+    (8192, 8192, 8), (8192, 8192, 1), (8192, 4096, 8), (100, 8192, 1), (65536, 64, 1), (1, 1, 1),
+    (7, 33, 1), (300, 1, 1), (300, 520, 8), (1000, 24, 8), (8192, 1 << 20, 8), (123457, 999, 1))]
+SPLIT_SHAPES += [  # a program's kernels: fewer blocks an SM (3 on 8 columns a thread, 2 on one)
+    pytest.param(N, M, vec, (3 if vec == tsr.NV else 2) * tsr.SMS, id=f"{N}-{M}-{vec}-program")
+    for N, M, vec in ((8192, 8192, 8), (8192, 4096, 8), (1000, 3000, 8), (1000, 3001, 1),
+                      (24, 3000, 8), (8192, 1 << 20, 8), (8192, 8192, 1))]
 
 
-@pytest.mark.parametrize("N,M,vec", SPLIT_SHAPES)
-def test_row_chunks_is_one_wave_of_whole_steps(N, M, vec):
-    chunks, rows = tsr.row_chunks(N, M, vec)
+@pytest.mark.parametrize("N,M,vec,slots", SPLIT_SHAPES)
+def test_row_chunks_is_one_wave_of_whole_steps(N, M, vec, slots):
+    chunks, rows = tsr.row_chunks(N, M, vec, slots)
     col_blocks = -(-M // (tsr.COLS * vec))
     assert rows % tsr.STEP == 0 and rows > 0
     assert (chunks - 1) * rows < N <= chunks * rows  # every row in one chunk, none empty
-    if col_blocks <= tsr.SLOTS:
-        assert col_blocks * chunks <= tsr.SLOTS  # every block resident in the one wave
+    if col_blocks <= slots:
+        assert col_blocks * chunks <= slots  # every block resident in the one wave
         # as tall as that allows: one step shorter would need more blocks
-        assert rows == tsr.STEP or -(-N // (rows - tsr.STEP)) * col_blocks > tsr.SLOTS
+        assert rows == tsr.STEP or -(-N // (rows - tsr.STEP)) * col_blocks > slots
     else:
         assert chunks == 1
-    assert tsr.row_chunks(N, M, vec) == (chunks, rows)
+    assert tsr.row_chunks(N, M, vec, slots) == (chunks, rows)
 
 
 _SIZES = {"int32_t": (4, 4), "float": (4, 4), "int64_t": (8, 8), "void*": (8, 8),
@@ -169,6 +173,81 @@ def test_c_layouts_match_the_cuda_sources():
         if cname == "TeParams":  # ``in`` is a Python keyword
             pnames = ["in" if n == "ins" else n for n in pnames]
         assert names == pnames, cname
+
+
+def test_stream_reduce_path_report_matches_the_cuda_source():
+    """The launcher's ``*path`` (csrc/stream_reduce.cu: SR_IDENTITY,
+    SR_AMORTIZED, SR_SCALAR, | SR_VECTOR) names the kernel and the width in
+    ``stream_reduce.PATHS``; a code the launcher cannot give raises."""
+    text = (CSRC / "stream_reduce.cu").read_text()
+    codes = dict((k, int(v)) for k, v in re.findall(r"\b(SR_\w+) = (\d+)", text))
+    assert codes == {"SR_IDENTITY": 0, "SR_AMORTIZED": 1, "SR_SCALAR": 2, "SR_VECTOR": tsr.SR_VECTOR}
+    names = {}
+    for k, kernel in enumerate(tsr.KERNELS):
+        assert codes["SR_" + kernel.upper()] == k
+        for width, bit in (("column", 0), ("vector", codes["SR_VECTOR"])):
+            names[k | bit] = f"{kernel}/{width}"
+    assert {tsr.path_name(c) for c in names} == set(tsr.PATHS) and len(names) == 6
+    assert all(tsr.path_name(c) == n for c, n in names.items())
+    for bad in (-1, 3, 7, 8):
+        with pytest.raises(RuntimeError):
+            tsr.path_name(bad)
+
+
+def test_stream_reduce_kernels_are_sized_by_their_launch_bounds():
+    """One owner of K3's launch policy: every kernel's ``__launch_bounds__``
+    promises the blocks an SM that ``launch_shape`` reports to
+    ``stream_reduce.split`` (``IDENTITY_BLOCKS``, ``program_blocks`` of the
+    register file the launcher picks), and the launcher picks the program
+    kernel by that register file, so a change to either moves both."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / "stream_reduce.cu").read_text())
+    bounds = dict((k, b) for b, k in re.findall(
+        r"__launch_bounds__\(THREADS, (.*?)\)\s*\n\s*(reduce_\w+)\(", text))
+    assert bounds == {"reduce_identity": "IDENTITY_BLOCKS",
+                      "reduce_program": "program_blocks(R, VEC)"}
+    shape = re.search(r"void launch_shape\(.*?\n\}", text, re.S).group(0)
+    assert "IDENTITY_BLOCKS" in shape and "program_blocks(register_file(n_reg, " in shape
+    launcher = re.search(r'extern "C" int strided_stream_reduce\(.*', text, re.S).group(0)
+    assert "launch_shape(prog->n_instr, prog->n_reg" in launcher
+    assert "const int r = register_file(prog->n_reg, vec == NV);" in launcher
+    assert "pick_program<true>(r, vec == NV)" in launcher
+
+
+def test_a_marked_map_is_traced_once_per_key_and_types(monkeypatch):
+    """K3's plan of a map marked with ``kernels_special.pure`` (the traced
+    program, its result dtype, the operand's layout) is made once per key,
+    fold, operand type and layout, and served to every equal key after; an
+    unmarked closure is planned on every call."""
+    from strided_tpu_torch import config as tcfg, strided, transpose
+    from strided_tpu_torch.core import kernels_special as tks
+
+    traced = []
+    trace = ewise.trace
+    monkeypatch.setattr(ewise, "trace", lambda f, *a, **k: traced.append(f) or trace(f, *a, **k))
+    monkeypatch.setattr(tks, "_PLANS", {})
+    scale = lambda c: tks.pure(lambda x: x * c, ("scale", c))  # noqa: E731
+    x = torch.arange(64 * 8, dtype=torch.float32).reshape(64, 8)
+    v = strided(x, device="cpu")
+    old = tcfg.get_config().min_stream_reduce_elements
+    tcfg.set_config(min_stream_reduce_elements=1)
+    try:
+        steps = [  # (map, view, reduced axis, want, traces so far)
+            (scale(0.25), v, 0, (x * 0.25).sum(0), 1),
+            (scale(0.25), v, 0, (x * 0.25).sum(0), 1),
+            (scale(0.5), v, 0, (x * 0.5).sum(0), 2),
+            (scale(0.25), strided(x.bfloat16(), device="cpu"), 0,
+             (x.bfloat16() * 0.25).sum(0, dtype=torch.bfloat16), 3),
+            (scale(0.25), transpose(v), 1, (x * 0.25).sum(0), 4),
+            (scale(0.25), transpose(v), 1, (x * 0.25).sum(0), 4),
+            (lambda t: t * 0.25, v, 0, (x * 0.25).sum(0), 5),
+            (lambda t: t * 0.25, v, 0, (x * 0.25).sum(0), 6),
+        ]
+        for f, view, axis, want, n in steps:
+            got = tks.try_stream_reduce(f, torch.add, view, (axis,))
+            assert got.dtype == want.dtype and torch.equal(got, want)
+            assert len(traced) == n
+    finally:
+        tcfg.set_config(min_stream_reduce_elements=old)
 
 
 def test_to_c_packs_the_compacted_program():
