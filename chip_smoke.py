@@ -8,9 +8,10 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 
 1. device: a CUDA device is required; prints its name and power limit;
 2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc, and
-   prints ptxas's registers, stack frame and spills of every K1, K3 and K4
-   kernel; K1's 64-row instance (the main path's) and every instance of K3's
-   program kernel must not spill;
+   prints ptxas's registers, stack frame and spills of every K1, K3, K4 and
+   rank-4 reversal kernel; K1's 64-row instance (the main path's), every
+   instance of K3's program kernel and every ``rev4_tiles`` instance must not
+   spill, and every ``rev4_tiles`` and ``rev4_mma`` instance must be built;
 3. kernel vs plain: the fused-ADMM kernel against its plain PyTorch version
    on the same inputs, and both against the same iterations in f64: the
    main-path QP (D=200) at B = 16384, at 64 * #SMs +- 1 (one row past or
@@ -81,7 +82,8 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 11. the transpose-pair probes: ``exp_sym`` (every variant at 8192^2) and
     ``exp_pair_rect`` (at 8064^2) through their ``main``, with the four probe
     kernels' launches read for that run alone; each kernel at every tile
-    shape exactly equal to its plain version (NaN pattern included for
+    shape, written into a NaN-filled output made just before the call,
+    exactly equal to its plain version (NaN pattern included for
     ``rect_pairs``) and timed against it in turns; both probe modules once
     more as ``python -m``;
 12. the streaming-reduction and rank-4 reversal probes: ``exp_reduce`` (at
@@ -91,8 +93,10 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     alone; ``stream_sum_slabs`` at every slab within K3's tolerance of the
     plain and the f64 sum, and equal to ``a[0]`` with compute off; every
     reversal variant (``rev4_tiles``, ``rev4_mma`` at both precisions,
-    ``rev4_async``, the plane copy) exactly equal to its plain version; each
-    timed against it in turns; the four modules once more as ``python -m``.
+    ``rev4_async``, the plane copy), written into a NaN-filled output made
+    just before the call (here and in the scripts' own checks), exactly
+    equal to its plain version; each timed against it in turns; the four
+    modules once more as ``python -m``.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
 JSON object describing the twelve kernels (each with its time, its plain
@@ -179,6 +183,7 @@ def main() -> None:
     if len(k3_programs) != K3_PROGRAM_INSTANCES or any(k3_programs.values()):
         raise RuntimeError(f"ptxas: expected {K3_PROGRAM_INSTANCES} reduce_program instances "
                            f"and no spills, got {k3_programs}")
+    reversal_instances(report)
 
     rho, alpha, iters = 8.0, 1.6, 6
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
@@ -285,6 +290,24 @@ K1_MAIN_INSTANCE = "fused_admm_kernelILi8ELi8ELi8ELb1E"
 # K3's program kernels: float or int results x the register file (1, 2, 4 or
 # the scalar interpreter's) on 8 columns a thread, and (2, 4 or scalar) on one
 K3_PROGRAM_INSTANCES = 14
+
+
+def reversal_instances(report) -> None:
+    """Phase 2's check of ``csrc/exp_perm.cu``: every ``rev4_tiles`` instance
+    the wrapper dispatches to (``rev4_async`` runs one of them) and every
+    ``rev4_mma`` instance is built, and no ``rev4_tiles`` instance spills."""
+    from strided_tpu_torch.benchmarks import perm_kernels as pk
+
+    built = {name: spill for src, name, _regs, spill in report if src == "exp_perm"}
+    want = {f"rev4_tiles_kernelILi{g}ELi{e3}ELi{st}ELb{int(cp)}E": True
+            for g, e3, st, cp in pk.TILES_INSTANCES}
+    want.update({f"rev4_mma_kernelILi{g}ELb{int(h)}E": False
+                 for g in (pk.J2J1, pk.J3J2) for h in (False, True)})
+    for key, no_spill in want.items():
+        found = [spill for name, spill in built.items() if key in name]
+        if len(found) != 1 or (no_spill and found[0]):
+            raise RuntimeError(f"ptxas: {key} is missing or spills (spill stores {found})")
+    print(f"[2 build] exp_perm: {len(want)} rev4 instances built, no rev4_tiles spill")
 
 
 def k1_times(dev, ctrl, rng, batch, card, *, rho, alpha, iters) -> dict:
@@ -988,7 +1011,7 @@ def _report(phase, what, unit, amount, times, card):
           f"plain {p1:.4f}/{p2:.4f} ms ({amount / p / 1e6:.0f} {unit}){lib} [{card}]")
 
 
-def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor")) -> list:
+def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor", "exp_perm")) -> list:
     """Registers, stack frame and spills of each kernel of ``sources``, from
     the ptxas report (``-Xptxas -v``) the build keeps beside the library.
     Returns ``(source, kernel, registers, spill bytes stored)`` for each."""
@@ -1121,29 +1144,39 @@ def probe_phases(dev, card):
     xr = torch.randn(er.N, er.N, device=dev, generator=gen)
     nans = torch.full_like(xr, float("nan"))
     out_k, out_p = nans.clone(), nans.clone()  # NaN-filled once, outside the timed loops
-    cases = [("transpose_tiles", f"{th}x{tw}", 2 * 4 * x.numel(),
-              lambda th=th, tw=tw: es.transpose_tiles(x, th, tw), lambda: es.transpose_reference(x))
+    # each case: (kernel, input, kernel(out), plain(out)); the timed calls
+    # take the default out (a new tensor; rect_pairs': out_k and out_p)
+    cases = [("transpose_tiles", f"{th}x{tw}", 2 * 4 * x.numel(), x,
+              lambda out=None, th=th, tw=tw: es.transpose_tiles(x, th, tw, out=out),
+              lambda out=None: es.transpose_reference(x))
              for th, tw in ((32, 32), (64, 64), *es.RECT_TILES)]
-    cases += [("sym_two_read", f"{t}", 3 * 4 * x.numel(), lambda t=t: es.sym_two_read(x, t),
-               lambda: es.sym_reference(x)) for t in es.SQUARE_TILES]
+    cases += [("sym_two_read", f"{t}", 3 * 4 * x.numel(), x,
+               lambda out=None, t=t: es.sym_two_read(x, t, out=out),
+               lambda out=None: es.sym_reference(x)) for t in es.SQUARE_TILES]
     for t in es.SQUARE_TILES:
-        for label, kw, plain in (("full", {}, lambda: es.sym_reference(x)),
-                                 ("copy", dict(do_transpose=False), x.clone),
-                                 ("full skipdiag", dict(skip_diag=True), lambda: es.sym_reference(x))):
-            cases.append(("pair_tiles", f"{t} {label}", 2 * 4 * x.numel(),
-                          lambda t=t, kw=kw: es.pair_tiles(x, t, **kw), plain))
+        for label, kw, plain in (("full", {}, lambda out=None: es.sym_reference(x)),
+                                 ("copy", dict(do_transpose=False), lambda out=None: x.clone()),
+                                 ("full skipdiag", dict(skip_diag=True),
+                                  lambda out=None: es.sym_reference(x))):
+            cases.append(("pair_tiles", f"{t} {label}", 2 * 4 * x.numel(), x,
+                          lambda out=None, t=t, kw=kw: es.pair_tiles(x, t, out=out, **kw), plain))
     for T in er.TILES:
         nbytes = len(er.rect_worklist(er.N, T)) * 4 * T * 2 * T * 4
-        cases.append(("rect_pairs", f"{T}x{2 * T}", nbytes, lambda T=T: er.rect_pairs(xr, out_k, T)[0],
-                      lambda T=T: er.rect_pairs_reference(xr, out_p, T)[0]))
+        cases.append(("rect_pairs", f"{T}x{2 * T}", nbytes, xr,
+                      lambda out=out_k, T=T: er.rect_pairs(xr, out, T)[0],
+                      lambda out=out_p, T=T: er.rect_pairs_reference(xr, out, T)[0]))
     best, err = {}, {}
-    for name, shape, nbytes, kernel, plain in cases:
-        got, want = kernel().clone(), plain()
+    for name, shape, nbytes, src, kernel, plain in cases:
+        # written into a NaN-filled tensor made just before the call: an
+        # element the kernel skips stays NaN and fails the comparison
+        got = kernel(torch.full_like(src, float("nan")))
+        want = plain(torch.full_like(src, float("nan")))
         torch.cuda.synchronize()
         e = _max_err(got, want)
-        print(f"[11 probes] {name} {shape}: |kernel - plain| {e:.3e} (limit 0)")
+        print(f"[11 probes] {name} {shape}: |kernel - plain| {e:.3e} (limit 0, into NaNs)")
         if e != 0.0:
             raise RuntimeError(f"{name} {shape}: kernel off its plain version by {e:.3e}")
+        del got, want
         err[name] = max(err.get(name, 0.0), e)
         times = _turns(kernel, plain, reps=20)
         _report(11, f"{name} {shape}", "GB/s", nbytes, times, card)
@@ -1258,10 +1291,11 @@ def reduce_perm_phase(dev, card):
             if name == "plain" or name.startswith("t2d"):
                 continue  # the plain version itself; P1's transpose_tiles (phase 11)
             kernel = _reversal_kernel(name)
-            e = _max_err(fn(x), plain(x))
+            # into a NaN-filled tensor made just before the call (as phase 11)
+            e = _max_err(fn(x, out=torch.full_like(x, float("nan"))), plain(x))
             torch.cuda.synchronize()
             what = f"{kernel} {script.__name__.rsplit('.', 1)[1]}.{name}"
-            print(f"[12 reduce/perm] {what}: |kernel - plain| {e:.3e} (limit 0)")
+            print(f"[12 reduce/perm] {what}: |kernel - plain| {e:.3e} (limit 0, into NaNs)")
             if e != 0.0:
                 raise RuntimeError(f"{what}: kernel off its plain version by {e:.3e}")
             times = _turns(lambda fn=fn: fn(x), lambda plain=plain: plain(x), reps=20)

@@ -6,10 +6,10 @@ middle-dims block geometry: a block is a ``bb``-run of b (j2) times a
 ``cc``-run of c (j1), a and d whole (``perm_kernels.J2J1``). Variants keep
 the TPU names:
 
-- ``loop2d_BB_CC``: one (j3, j0) plane a shared-memory pass
+- ``loop2d_BB_CC``: one (j3, j0) plane a stage of the shared-memory ring
   (``rev4_tiles``, PLANE), as the TPU's unrolled 2-D transposes;
 - ``chain_8_8``, ``chain3_BB_CC``: the TPU's reshape/transpose chains, here
-  a 66.5 KB chunk of the block staged and written through the reversed
+  stages of 128 rows of the block, transposed and written through the reversed
   index (``rev4_tiles``, BLOCK): the chain has no GPU meaning of its own;
 - ``nocompute_8_8``: the same traffic with the planes copied untransposed,
   ``x.permute(0, 2, 1, 3)`` (``rev4_tiles``, PLANE copy);

@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from . import cli
+from . import cli, into
 from .exp_sym import transpose_tiles
 from .perm_kernels import (BLOCK, J2J1, J3J2, LAUNCHES, rev4_async, rev4_mma, rev4_tiles,
                            reversal_reference, run_reversal)
@@ -44,16 +44,18 @@ D = 64
 T2D_TILES = ((32, 64), (64, 32))
 
 
-def t2d(x: torch.Tensor, th: int = 64, tw: int = 32) -> torch.Tensor:
+def t2d(x: torch.Tensor, th: int = 64, tw: int = 32, out: torch.Tensor | None = None):
     """``v_2d_transpose_ref``: the ``(D^2, D^2)`` matrix of ``x`` transposed
-    through ``th x tw`` tiles, returned in ``x``'s shape."""
+    through ``th x tw`` tiles, returned in ``x``'s shape (written into
+    ``out`` when given)."""
     m = x.shape[0] * x.shape[1]
-    return transpose_tiles(x.reshape(m, m), th, tw).reshape(x.shape)
+    o = None if out is None else out.view(m, m)
+    return transpose_tiles(x.reshape(m, m), th, tw, out=o).reshape(x.shape)
 
 
-def t2d_reference(x: torch.Tensor) -> torch.Tensor:
+def t2d_reference(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     m = x.shape[0] * x.shape[1]
-    return x.reshape(m, m).T.contiguous().reshape(x.shape)
+    return into(out, x.reshape(m, m).T.contiguous().reshape(x.shape))
 
 
 def variants():
@@ -62,8 +64,8 @@ def variants():
     rev = reversal_reference
     V = {"plain": (rev, rev)}
     for b2 in (4, 8):  # j1 whole
-        V[f"grouped_j2_b{b2}"] = (lambda x, b2=b2: tiles(x, geometry=J2J1, ra=b2, rb=x.shape[0]),
-                                  rev)
+        V[f"grouped_j2_b{b2}"] = (lambda x, b2=b2, **kw: tiles(x, geometry=J2J1, ra=b2,
+                                                               rb=x.shape[0], **kw), rev)
     for b1, b2 in ((8, 8), (16, 16)):
         V[f"grouped_j1j2_{b1}_{b2}"] = (functools.partial(tiles, geometry=J2J1, ra=b2, rb=b1),
                                         rev)

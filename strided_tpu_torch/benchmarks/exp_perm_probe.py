@@ -7,9 +7,9 @@ same data movement, so on the card each becomes ``rev4_tiles`` over its
 block geometry. The variants keep the TPU names:
 
 - ``_call3`` (J3J2 blocks, a ``B3``-run of j3 times a ``B2``-run of j2):
-  ``direct_B3_B2``, ``3stage_B3_B2``, ``2stage_B3_B2`` (BLOCK staging: a
-  66.5 KB chunk written through the reversed index) and
-  ``loop_rank3_8_8`` (PLANE staging: one ``B3 x D`` (j3, j0) plane a pass,
+  ``direct_B3_B2``, ``3stage_B3_B2``, ``2stage_B3_B2`` (BLOCK staging:
+  stages of 128 rows of the block) and
+  ``loop_rank3_8_8`` (PLANE staging: one ``B3 x D`` (j3, j0) plane a stage,
   as the TPU's loop over j3);
 - ``_call_m`` (the merged-out geometry, J2J1 blocks of a ``K2``-run of j2
   times a ``B1``-run of j1): ``direct_m_K2_B1``, ``2stage_m_K2_B1``,

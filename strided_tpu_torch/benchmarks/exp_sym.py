@@ -19,7 +19,9 @@ must be a multiple of every tile swept.
 The three kernels are ``csrc/exp_sym.cu``. Each wrapper checks its input,
 launches on the current stream for a CUDA tensor (raising on a non-zero
 ``cudaError_t``) and counts ``LAUNCHES[name]``; a CPU tensor takes the
-plain version beside it.
+plain version beside it. Each takes an optional ``out=``, a contiguous
+tensor of the result's shape, dtype and device that does not overlap the
+input, writes the result there (on either path) and returns it.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import functools
 
 import torch
 
-from . import cli
+from . import check_out, cli, into
 
 __all__ = ["transpose_tiles", "transpose_reference", "sym_two_read", "sym_reference",
            "pair_tiles", "pair_reference", "variants", "run", "main", "LAUNCHES"]
@@ -66,8 +68,8 @@ def _lib():
     return lib
 
 
-def _launch(name: str, a: torch.Tensor, call) -> torch.Tensor:
-    out = torch.empty_like(a)
+def _launch(name: str, a: torch.Tensor, out: torch.Tensor | None, call) -> torch.Tensor:
+    out = torch.empty_like(a) if out is None else out
     with torch.cuda.device(a.device):
         err = call(out, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
@@ -76,40 +78,44 @@ def _launch(name: str, a: torch.Tensor, call) -> torch.Tensor:
     return out
 
 
-def transpose_reference(a: torch.Tensor) -> torch.Tensor:
-    return a.T.contiguous()
+def transpose_reference(a: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    return into(out, a.T.contiguous())
 
 
-def transpose_tiles(a: torch.Tensor, th: int = 32, tw: int | None = None) -> torch.Tensor:
+def transpose_tiles(a: torch.Tensor, th: int = 32, tw: int | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """``a.T`` through ``th x tw`` tiles (``v_pallas_t2d``, ``v_pallas_t2d_rect``)."""
     tw = th if tw is None else tw
     if (th, tw) not in RECT_TILES and not (th == tw and th in SQUARE_TILES):
         raise ValueError(f"transpose_tiles: no kernel for tiles {th}x{tw}")
     n = _check(a, "transpose_tiles", th, tw)
+    check_out("transpose_tiles", a, out)
     if a.device.type == "cpu":
-        return transpose_reference(a)
-    return _launch("transpose_tiles", a, lambda out, s: _lib().strided_transpose_tiles(
-        a.data_ptr(), out.data_ptr(), n, th, tw, s))
+        return transpose_reference(a, out)
+    return _launch("transpose_tiles", a, out, lambda y, s: _lib().strided_transpose_tiles(
+        a.data_ptr(), y.data_ptr(), n, th, tw, s))
 
 
-def sym_reference(a: torch.Tensor) -> torch.Tensor:
-    return (a + a.T) * 0.5
+def sym_reference(a: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    return into(out, (a + a.T) * 0.5)
 
 
-def sym_two_read(a: torch.Tensor, tile: int = 32) -> torch.Tensor:
+def sym_two_read(a: torch.Tensor, tile: int = 32, out: torch.Tensor | None = None) -> torch.Tensor:
     """``(a + a.T) * 0.5``, one output tile a block reading both mirror tiles
     (``v_pallas_sym_blockspec``)."""
     if tile not in SQUARE_TILES:
         raise ValueError(f"sym_two_read: no kernel for tile {tile}")
     n = _check(a, "sym_two_read", tile)
+    check_out("sym_two_read", a, out)
     if a.device.type == "cpu":
-        return sym_reference(a)
-    return _launch("sym_two_read", a, lambda out, s: _lib().strided_sym_two_read(
-        a.data_ptr(), out.data_ptr(), n, tile, s))
+        return sym_reference(a, out)
+    return _launch("sym_two_read", a, out, lambda y, s: _lib().strided_sym_two_read(
+        a.data_ptr(), y.data_ptr(), n, tile, s))
 
 
-def pair_reference(a: torch.Tensor, do_transpose: bool = True) -> torch.Tensor:
-    return sym_reference(a) if do_transpose else a.clone()
+def pair_reference(a: torch.Tensor, do_transpose: bool = True,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    return into(out, sym_reference(a) if do_transpose else a.clone())
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,18 +127,19 @@ def pair_worklist(nb: int, device: torch.device):
 
 
 def pair_tiles(a: torch.Tensor, tile: int = 32, do_transpose: bool = True,
-               skip_diag: bool = False) -> torch.Tensor:
+               skip_diag: bool = False, out: torch.Tensor | None = None) -> torch.Tensor:
     """The tile-pair schedule (``v_pair``): ``(a + a.T) * 0.5`` with
     ``do_transpose``, else a pair copy ``a``; ``skip_diag`` writes a diagonal
     pair's tile once (same result)."""
     if tile not in SQUARE_TILES:
         raise ValueError(f"pair_tiles: no kernel for tile {tile}")
     n = _check(a, "pair_tiles", tile)
+    check_out("pair_tiles", a, out)
     if a.device.type == "cpu":
-        return pair_reference(a, do_transpose)
+        return pair_reference(a, do_transpose, out)
     ii, jj = pair_worklist(n // tile, a.device)
-    return _launch("pair_tiles", a, lambda out, s: _lib().strided_pair_tiles(
-        a.data_ptr(), out.data_ptr(), ii.data_ptr(), jj.data_ptr(), ii.numel(), n, tile,
+    return _launch("pair_tiles", a, out, lambda y, s: _lib().strided_pair_tiles(
+        a.data_ptr(), y.data_ptr(), ii.data_ptr(), jj.data_ptr(), ii.numel(), n, tile,
         int(do_transpose), int(skip_diag), s))
 
 

@@ -12,15 +12,21 @@ geometries:
 - ``J3J2``: a block is a run ``ra`` of j3 times a run ``rb`` of j2, with j1
   and j0 whole (``exp_perm_probe._call3``, ``exp_perm4.v_plain4d``).
 
-Three kernels, in ``csrc/exp_perm.cu``: :func:`rev4_tiles` (shared memory,
-one plane or a 66.5 KB chunk of the block a pass, or the untransposed plane
-copy of ``v_loop2d_nocompute``), :func:`rev4_mma` (an identity product on
-the tensor cores in bf16 parts) and :func:`rev4_async` (a ``cp.async`` ring
-of planes). Each wrapper checks its input and launches on the current stream
-for a CUDA tensor, raising on a non-zero ``cudaError_t``, and counts
-``LAUNCHES[name]``; a CPU tensor takes the plain version beside it. The
-kernels are built for ``D = 64``, the probes' size; the plain versions take
-any ``D`` that the runs divide.
+Two kernels, in ``csrc/exp_perm.cu``: ``rev4_tiles`` (16-byte ``cp.async``
+copies through a three-stage ring in shared memory, a stage of one plane or
+of 128 rows of the block, transposed in 4 x 4 sub-blocks and stored 16
+bytes a thread; or the untransposed plane copy of ``v_loop2d_nocompute``,
+float4 loads straight to float4 stores), behind :func:`rev4_tiles` and
+:func:`rev4_async` (its J2J1 PLANE instance, one CTA a TPU block), and
+``rev4_mma`` (an identity product on the tensor cores in bf16 parts),
+behind :func:`rev4_mma`. The CUDA source alone decides each launch's
+stages, threads, shared memory and grid. Each wrapper checks its input and
+launches on the current stream for a CUDA tensor, raising on a non-zero
+``cudaError_t``, and counts ``LAUNCHES[name]``; a CPU tensor takes the
+plain version beside it. Each takes an optional ``out=``, a contiguous
+tensor of the result's shape, dtype and device that does not overlap
+``x``, writes the result there (on either path) and returns it. The kernels are built for ``D = 64``, the probes'
+size; the plain versions take any ``D`` that the runs divide.
 """
 
 from __future__ import annotations
@@ -30,7 +36,10 @@ import functools
 
 import torch
 
-__all__ = ["J2J1", "J3J2", "PLANE", "BLOCK", "KERNEL_D", "LAUNCHES", "reversal_reference",
+from . import check_out, into
+
+__all__ = ["J2J1", "J3J2", "PLANE", "BLOCK", "KERNEL_D", "J3J2_HEIGHTS", "LAUNCHES",
+           "TILES_INSTANCES", "tiles_instance", "reversal_reference",
            "plane_copy_reference", "mma_reference", "rev4_tiles", "rev4_mma", "rev4_async",
            "engine_reversal", "run_reversal"]
 
@@ -39,6 +48,21 @@ PLANE, BLOCK = 0, 1
 KERNEL_D = 64  # csrc/exp_perm.cu: D
 J3J2_HEIGHTS = (8, 16, 64)  # csrc/exp_perm.cu: rev4_tiles' E3 for J3J2
 LAUNCHES = {"rev4_tiles": 0, "rev4_mma": 0, "rev4_async": 0}
+
+
+def tiles_instance(geometry: int, ra: int, staging: int = PLANE, copy: bool = False) -> tuple:
+    """The ``rev4_tiles`` kernel instance ``(geometry, E3, staging, copy)``
+    a call runs (``csrc/exp_perm.cu::rev4_tiles_kernel``'s template
+    arguments): E3, the j3 rows of a plane, is D for J2J1 and the run
+    ``ra`` for J3J2. ``rev4_async`` runs the J2J1 PLANE instance."""
+    return geometry, KERNEL_D if geometry == J2J1 else ra, staging, bool(copy)
+
+
+# every instance the wrapper dispatches to: both stagings of each
+# geometry and height, and the plane copy
+TILES_INSTANCES = (*(tiles_instance(J2J1, KERNEL_D, s) for s in (PLANE, BLOCK)),
+                   tiles_instance(J2J1, KERNEL_D, PLANE, True),
+                   *(tiles_instance(J3J2, e, s) for e in J3J2_HEIGHTS for s in (PLANE, BLOCK)))
 
 
 def _check(x: torch.Tensor, what: str, *runs: int) -> int:
@@ -70,8 +94,8 @@ def _lib():
     return lib
 
 
-def _launch(name: str, x: torch.Tensor, call) -> torch.Tensor:
-    out = torch.empty_like(x)
+def _launch(name: str, x: torch.Tensor, out: torch.Tensor | None, call) -> torch.Tensor:
+    out = torch.empty_like(x) if out is None else out
     with torch.cuda.device(x.device):
         err = call(out, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -80,30 +104,32 @@ def _launch(name: str, x: torch.Tensor, call) -> torch.Tensor:
     return out
 
 
-def reversal_reference(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(3, 2, 1, 0).contiguous()
+def reversal_reference(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    return into(out, x.permute(3, 2, 1, 0).contiguous())
 
 
-def plane_copy_reference(x: torch.Tensor) -> torch.Tensor:
+def plane_copy_reference(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """What ``v_loop2d_nocompute`` writes: each (j3, j0) plane untransposed
     at ``y[:, j1, j2, :]``."""
-    return x.permute(0, 2, 1, 3).contiguous()
+    return into(out, x.permute(0, 2, 1, 3).contiguous())
 
 
-def mma_reference(x: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+def mma_reference(x: torch.Tensor, precision: str = "highest",
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """The identity product's result: ``x`` reversed exactly at "highest",
     ``bf16(x)`` reversed at "default" (one bf16 product, as the TPU's
     DEFAULT)."""
     if precision == "default":
         x = x.to(torch.bfloat16).float()
-    return reversal_reference(x)
+    return reversal_reference(x, out)
 
 
 def rev4_tiles(x: torch.Tensor, geometry: int, ra: int, rb: int, staging: int = PLANE,
-               copy: bool = False) -> torch.Tensor:
-    """The reversal (``copy``: the plane copy) through shared memory, over
-    the TPU blocks of ``geometry`` with runs ``(ra, rb)``, one plane
-    (``PLANE``) or a 66.5 KB chunk of the block (``BLOCK``) a pass."""
+               copy: bool = False, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The reversal (``copy``: the plane copy) through a ``cp.async`` ring
+    in shared memory, over the TPU blocks of ``geometry`` with runs
+    ``(ra, rb)``, a stage of one plane (``PLANE``) or of 128 rows of the
+    block (``BLOCK``)."""
     if geometry not in (J2J1, J3J2) or staging not in (PLANE, BLOCK):
         raise ValueError(f"rev4_tiles: geometry {geometry}, staging {staging}")
     if copy and (geometry, staging) != (J2J1, PLANE):
@@ -111,14 +137,15 @@ def rev4_tiles(x: torch.Tensor, geometry: int, ra: int, rb: int, staging: int = 
     if geometry == J3J2 and ra not in J3J2_HEIGHTS:
         raise ValueError(f"rev4_tiles: no J3J2 kernel for a j3 run of {ra}")
     d = _check(x, "rev4_tiles", ra, rb)
+    check_out("rev4_tiles", x, out)
     if x.device.type == "cpu":
-        return plane_copy_reference(x) if copy else reversal_reference(x)
-    return _launch("rev4_tiles", x, lambda out, s: _lib().strided_rev4_tiles(
-        x.data_ptr(), out.data_ptr(), d, geometry, ra, rb, staging, int(copy), s))
+        return plane_copy_reference(x, out) if copy else reversal_reference(x, out)
+    return _launch("rev4_tiles", x, out, lambda y, s: _lib().strided_rev4_tiles(
+        x.data_ptr(), y.data_ptr(), d, geometry, ra, rb, staging, int(copy), s))
 
 
-def rev4_mma(x: torch.Tensor, geometry: int, ra: int, rb: int,
-             precision: str = "highest") -> torch.Tensor:
+def rev4_mma(x: torch.Tensor, geometry: int, ra: int, rb: int, precision: str = "highest",
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """The reversal as an identity product on the tensor cores (``v_mxu``):
     three bf16 parts at "highest" (exact), one at "default"."""
     if precision not in ("highest", "default") or geometry not in (J2J1, J3J2):
@@ -126,20 +153,23 @@ def rev4_mma(x: torch.Tensor, geometry: int, ra: int, rb: int,
     d = _check(x, "rev4_mma", ra, rb)
     if geometry == J3J2 and ra != d:
         raise ValueError(f"rev4_mma: J3J2 takes whole (j3, j0) planes, ra={ra} != D={d}")
+    check_out("rev4_mma", x, out)
     if x.device.type == "cpu":
-        return mma_reference(x, precision)
-    return _launch("rev4_mma", x, lambda out, s: _lib().strided_rev4_mma(
-        x.data_ptr(), out.data_ptr(), d, geometry, ra, rb, int(precision == "highest"), s))
+        return mma_reference(x, precision, out)
+    return _launch("rev4_mma", x, out, lambda y, s: _lib().strided_rev4_mma(
+        x.data_ptr(), y.data_ptr(), d, geometry, ra, rb, int(precision == "highest"), s))
 
 
-def rev4_async(x: torch.Tensor, c2: int) -> torch.Tensor:
+def rev4_async(x: torch.Tensor, c2: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """The reversal through a ``cp.async`` ring of planes, a CTA owning a
-    run of ``c2`` of j2 (``v_dma4d``)."""
+    run of ``c2`` of j2 (``v_dma4d``): ``rev4_tiles``' J2J1 PLANE kernel,
+    one CTA a block of runs ``(c2, 16 / c2)``."""
     d = _check(x, "rev4_async", c2)
+    check_out("rev4_async", x, out)
     if x.device.type == "cpu":
-        return reversal_reference(x)
-    return _launch("rev4_async", x, lambda out, s: _lib().strided_rev4_async(
-        x.data_ptr(), out.data_ptr(), d, c2, s))
+        return reversal_reference(x, out)
+    return _launch("rev4_async", x, out, lambda y, s: _lib().strided_rev4_async(
+        x.data_ptr(), y.data_ptr(), d, c2, s))
 
 
 def engine_reversal(x: torch.Tensor) -> tuple[torch.Tensor, str]:
@@ -158,7 +188,10 @@ def engine_reversal(x: torch.Tensor) -> tuple[torch.Tensor, str]:
 def run_reversal(script: str, V: dict, names, d: int, reps: int, seed: int, engine: bool):
     """Check and time the variants ``names`` of ``V`` (default: all, and
     ``engine`` when ``engine``) on a seeded ``d^4`` f32 tensor on the card:
-    one dict per variant, ``gbs`` counting ``2 * d^4 * 4`` bytes."""
+    one dict per variant, ``gbs`` counting ``2 * d^4 * 4`` bytes. Each
+    variant is checked as written through ``out=`` into a NaN-filled tensor
+    made just before the call, so that no element a kernel skips can pass
+    on what a freed buffer held; the timed calls allocate as usual."""
     from ..bench import cuda_ms
 
     if not torch.cuda.is_available():
@@ -175,7 +208,7 @@ def run_reversal(script: str, V: dict, names, d: int, reps: int, seed: int, engi
             ms = cuda_ms(lambda: engine_reversal(x), reps=reps)
         else:
             fn, want = V[name]
-            ok = torch.equal(fn(x), want(x))
+            ok = torch.equal(fn(x, out=torch.full_like(x, float("nan"))), want(x))
             ms = cuda_ms(lambda: fn(x), reps=reps)
         rows.append({**row, "gbs": nbytes / ms / 1e6, "ok": bool(ok), "ms": ms})
     return rows

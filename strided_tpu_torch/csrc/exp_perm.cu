@@ -17,14 +17,21 @@
 //         whole: each (j2, j1) gives a b3 x 64 (j3, j0) plane, and an output
 //         row holds only b3 contiguous floats (kept as the TPU probe had it).
 //
-// Three kernels:
-//   rev4_tiles  through shared memory padded by one column. PLANE stages one
-//               (j3, j0) plane a pass (v_loop2d, v_loop_rank3); BLOCK stages
-//               a 66.5 KB chunk of the TPU block (256 rows of j0) a pass and
-//               writes it through the reversed index (direct, chain, chain3,
-//               2stage, 3stage, plain4d, grouped, the _m forms). With COPY
-//               the plane is copied untransposed to y[:, j1, j2, :], i.e.
-//               x.permute(0, 2, 1, 3) (v_loop2d_nocompute).
+// Two kernels:
+//   rev4_tiles  16-byte copies through a three-stage cp.async ring of (j3,
+//               j0) rows in shared memory (ring_run): the next two stages'
+//               copies are in flight while a stage is transposed and stored,
+//               one barrier a pass. A thread reads a 4 x 4 sub-block of the stage
+//               (4 float4 rows), transposes it in registers and stores 4
+//               float4 rows of y. PLANE stages one (j3, j0) plane (E3 rows: 64,
+//               or b3 of J3J2), BLOCK 128 rows of the TPU block (2 planes of
+//               64 rows, or 128 / b3 of b3): the staging the TPU variants
+//               chose, as a stage size. With COPY the plane is copied
+//               untransposed to y[:, j1, j2, :], x.permute(0, 2, 1, 3)
+//               (v_loop2d_nocompute): float4 loads straight to float4 stores.
+//               rev4_async (v_dma4d's manual double-buffered DMA: a CTA owns
+//               a c2-run of j2 times a run of j1) is this kernel's J2J1 PLANE
+//               instance with one CTA a TPU block.
 //   rev4_mma    the reversal as an identity product on the tensor cores
 //               (v_mxu): Y = I * X^T with mma.sync m16n8k16 bf16 inputs and
 //               f32 accumulation, X read from shared memory as the B operand.
@@ -32,18 +39,15 @@
 //               each residual exact) and accumulates three products, which
 //               gives x back bit for bit, as the TPU's HIGHEST does; DEFAULT
 //               takes one product of bf16(x), as the TPU's DEFAULT does.
-//   rev4_async  v_dma4d's manual double-buffered DMA: a two-stage ring of
-//               (j3, j0) planes in shared memory filled by 16-byte
-//               cp.async.cg; a plane is transposed while the next one loads.
 //
 // What bounds them on an H100: bytes, 2 * 64^4 * 4 = 134 MB (each element
 // read once and written once) against 3.35 TB/s; the identity products do
 // 2 * 64 flops an element a pass on the tensor cores, far below their
-// bound. The TPU grids have 8-64 blocks, fewer than the card's 132 SMs:
-// rev4_tiles and rev4_mma split every TPU block over several CTAs (grid.x)
-// until the grid holds about 1056 CTAs; rev4_async's grid is c2-runs of j2
-// times ranges of j1, 256 CTAs. Loops have constant trip counts, so a
-// thread issues up to 16 loads of a pass at once (probe_tiles.cuh).
+// bound. Reversal GB/s follows access width (PERF.md): both ways are 16
+// bytes a thread here. The TPU grids have 8-64 blocks, fewer than the card's
+// 132 SMs: every TPU block is split over several CTAs (grid.x) until the
+// grid fills one wave of the card (rev4_tiles: as many CTAs as the
+// occupancy calculator lets reside; rev4_mma: about TARGET_CTAS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,68 +56,196 @@ namespace {
 
 constexpr int D = 64;                 // the extent of each of the four axes
 constexpr int D3 = D * D * D;         // stride of j3 in x and of j0 in y
-constexpr int TARGET_CTAS = 8 * 132;  // rev4_tiles, rev4_mma: CTAs a grid aims at
+constexpr int TARGET_CTAS = 8 * 132;  // rev4_mma: CTAs a grid aims at
 enum { J2J1 = 0, J3J2 = 1 };
 enum { PLANE = 0, BLOCK = 1 };
 
-// Plane q of TPU block blk: its j3 origin and its (j2, j1). ra, rb: the
-// block's runs (J2J1: of j2 and j1; J3J2: of j3 and j2).
+// Plane q of TPU block blk: its j3 origin and its (j2, j1). la, lb: log2 of
+// the block's runs (J2J1: of j2 and j1; J3J2: of j3 and j2); every run
+// divides 64, so every run is a power of two.
 template <int GEOM>
-__device__ __forceinline__ void plane_of(int ra, int rb, int blk, int q, int& j3o, int& j2,
+__device__ __forceinline__ void plane_of(int la, int lb, int blk, int q, int& j3o, int& j2,
                                          int& j1) {
-  const int ga = blk / (D / rb), gb = blk % (D / rb);
+  const int ga = blk >> (6 - lb), gb = blk & ((D >> lb) - 1);  // blk / (D / rb), blk % (D / rb)
   if (GEOM == J2J1) {
     j3o = 0;
-    j2 = ga * ra + q / rb;
-    j1 = gb * rb + q % rb;
+    j2 = (ga << la) + (q >> lb);
+    j1 = (gb << lb) + (q & ((1 << lb) - 1));
   } else {
-    j3o = ga * ra;
-    j2 = gb * rb + q / D;
+    j3o = ga << la;
+    j2 = (gb << lb) + q / D;
     j1 = q % D;
   }
 }
 
 // --------------------------------------------------------------------------
-// rev4_tiles: NPL planes of E3 x 64 a pass, through s[NPL][E3][D + 1].
-template <int GEOM, int E3, int NPL, bool COPY>
-__global__ void __launch_bounds__(256)
-rev4_tiles_kernel(const float* __restrict__ x, float* __restrict__ y, int ra, int rb,
+// The cp.async ring: stages of ROWS rows of 64 floats at a pitch of 68
+// (272-byte rows: 16-byte aligned for cp.async, and rows 4 apart 16 banks
+// apart, which the sub-block map below uses).
+constexpr int RING_PITCH = D + 4;
+constexpr int BLOCK_ROWS = 128;  // BLOCK's stage: 34.8 KB, so the ring leaves 2 CTAs an SM
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>  // wait until at most N of this thread's groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One stage <- ROWS rows of 64 floats, row r of pass p from src(p, r): 16
+// threads a 256-byte row, a constant trip count, one commit group.
+template <int ROWS, int THREADS, class Src>
+__device__ __forceinline__ void ring_fill(float* stage, const Src& src, int p) {
+  static_assert(ROWS * D / 4 % THREADS == 0, "a stage is whole rounds of the block");
+#pragma unroll
+  for (int k = 0; k < ROWS * D / 4 / THREADS; ++k) {
+    const int idx = threadIdx.x + k * THREADS, r = idx / (D / 4), c = idx % (D / 4) * 4;
+    cp_async16(stage + r * RING_PITCH + c, src(p, r) + c);
+  }
+  cp_async_commit();
+}
+
+// passes stages through a ring of STAGES: use(stage, p) runs while the
+// copies of the next STAGES - 1 passes are in flight. One barrier a pass:
+// it publishes pass p's rows and frees the stage of pass p - 1, which the
+// fill right after it reuses.
+template <int STAGES, int ROWS, int THREADS, class Src, class Use>
+__device__ __forceinline__ void ring_run(float* ring, int passes, const Src& src, const Use& use) {
+  static_assert(STAGES >= 2, "a fill overlaps a use");
+  constexpr int STAGE = ROWS * RING_PITCH;
+  for (int p = 0; p < STAGES - 1 && p < passes; ++p)
+    ring_fill<ROWS, THREADS>(ring + p * STAGE, src, p);
+  for (int p = 0; p < passes; ++p) {
+    if (p + STAGES - 2 < passes) cp_async_wait<STAGES - 2>();
+    else cp_async_wait<0>();
+    __syncthreads();
+    const int f = p + STAGES - 1;
+    if (f < passes) ring_fill<ROWS, THREADS>(ring + f % STAGES * STAGE, src, f);
+    use(ring + p % STAGES * STAGE, p);
+  }
+}
+
+// --------------------------------------------------------------------------
+// rev4_tiles. The launch policy of an instance, read by the kernel and by
+// the launcher alike: rows a stage, planes a stage, threads (one 4 x 4
+// sub-block a thread at least), stages of the ring and dynamic shared
+// memory (none for COPY, which does not stage).
+template <int E3, int STAGING, bool COPY>
+struct Tiles {
+  static constexpr int ROWS = STAGING == PLANE ? E3 : BLOCK_ROWS;
+  static constexpr int NPL = ROWS / E3;
+  static constexpr int THREADS = 4 * ROWS < 256 ? 4 * ROWS : 256;
+  // three stages (two fills in flight) beat two at one more CTA an SM (PERF.md)
+  static constexpr int STAGES = 3;
+  static constexpr int SMEM = COPY ? 0 : STAGES * ROWS * RING_PITCH * (int)sizeof(float);
+  static_assert(E3 % 4 == 0 && ROWS % E3 == 0, "sub-blocks lie within a plane");
+};
+
+// The planes of this CTA: plane pl of pass p at offset in of x (its row j3
+// = j3o) and out of y (its row j0 = 0; COPY: its row j3 = j3o), row j3o + j
+// of the plane j * D3 further on in both.
+template <int GEOM, int NPL, bool COPY>
+struct Planes {
+  int la, lb, passes;
+  __device__ __forceinline__ void at(int p, int pl, int& in, int& out) const {
+    int j3o, j2, j1;
+    plane_of<GEOM>(la, lb, blockIdx.y, (blockIdx.x * passes + p) * NPL + pl, j3o, j2, j1);
+    in = j3o * D3 + (j2 * D + j1) * D;
+    out = COPY ? j3o * D3 + (j1 * D + j2) * D : (j1 * D + j2) * D + j3o;
+  }
+};
+
+// ring_fill's source: stage row r of pass p is row r % E3 of plane r / E3.
+template <int GEOM, int E3, int NPL>
+struct RowsOfX {
+  const float* x;
+  Planes<GEOM, NPL, false> planes;
+  __device__ __forceinline__ const float* operator()(int p, int r) const {
+    int in, out;
+    planes.at(p, r / E3, in, out);
+    return x + in + r % E3 * D3;
+  }
+};
+
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Sub-block u of a stage of ROWS rows: rows 4a .. 4a + 3, columns 4b .. 4b
+// + 3. The 8 lanes of a float4 phase take b = 0..3 and both parities of a:
+// 16 * (a % 2) + 4 * b covers the 32 banks once (pitch 68), so the reads are
+// free of conflicts; the 32 lanes of a warp take 4 values of b and up to 8
+// of a, so a store writes 4 rows of y, 128 contiguous bytes each where a
+// plane's rows allow.
+template <int ROWS>
+__device__ __forceinline__ void sub_block(int u, int& a, int& b) {
+  constexpr int LA = ROWS / 4 >= 8 ? 3 : ROWS / 4 == 4 ? 2 : 1;
+  b = (u & 3) | (((u >> (2 + LA)) & 3) << 2);
+  a = ((u >> 2) & ((1 << LA) - 1)) | ((u >> (4 + LA)) << LA);
+}
+
+// ring_run's use: each sub-block of the stage read as 4 float4 rows (j3),
+// transposed in registers and stored as 4 float4 rows of y (j0).
+template <int GEOM, int E3, int ROWS, int THREADS>
+struct TransposeStage {
+  float* y;
+  Planes<GEOM, ROWS / E3, false> planes;
+  __device__ __forceinline__ void operator()(const float* st, int p) const {
+#pragma unroll
+    for (int k = 0; k < 4 * ROWS / THREADS; ++k) {
+      int a, b;
+      sub_block<ROWS>(threadIdx.x + k * THREADS, a, b);
+      float4 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = *(const float4*)(st + (4 * a + i) * RING_PITCH + 4 * b);
+      int in, out;
+      planes.at(p, 4 * a / E3, in, out);
+      float* dst = y + out + 4 * b * D3 + 4 * a % E3;  // rows j0 = 4b.., columns j3 = 4a..
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *(float4*)(dst + i * D3) =
+            make_float4(part(v[0], i), part(v[1], i), part(v[2], i), part(v[3], i));
+    }
+  }
+};
+
+template <int GEOM, int E3, int STAGING, bool COPY>
+__global__ void __launch_bounds__(Tiles<E3, STAGING, COPY>::THREADS)
+rev4_tiles_kernel(const float* __restrict__ x, float* __restrict__ y, int la, int lb,
                   int passes) {
-  constexpr int P = D + 1, ELEMS = NPL * E3 * D, PER_THREAD = ELEMS / 256;
-  static_assert(ELEMS % 256 == 0 && (E3 * D) % 256 == 0, "a pass is whole rows of 256 threads");
-  extern __shared__ float s[];
-  __shared__ int in_base[NPL], out_base[NPL];
-  const int t = threadIdx.x;
-  for (int pass = 0; pass < passes; ++pass) {
-    const int q0 = (blockIdx.x * passes + pass) * NPL;
-    if (t < NPL) {
-      int j3o, j2, j1;
-      plane_of<GEOM>(ra, rb, blockIdx.y, q0 + t, j3o, j2, j1);
-      in_base[t] = ((j3o * D + j2) * D + j1) * D;
-      out_base[t] = COPY ? ((j3o * D + j1) * D + j2) * D : (j1 * D + j2) * D + j3o;
-    }
-    __syncthreads();
-    // read: j0 fastest, rows of 256 bytes; 16 loads in flight a thread (a
-    // full unroll of BLOCK's 64 took 255 registers: one CTA an SM)
-#pragma unroll 16
-    for (int k = 0; k < PER_THREAD; ++k) {
-      const int idx = t + k * 256;
-      const int j0 = idx % D, j3 = (idx / D) % E3, pl = (k * 256) / (E3 * D);
-      s[(pl * E3 + j3) * P + j0] = __ldg(x + in_base[pl] + j3 * D3 + j0);
-    }
-    __syncthreads();
-#pragma unroll 16
-    for (int k = 0; k < PER_THREAD; ++k) {
-      const int idx = t + k * 256, pl = (k * 256) / (E3 * D);
-      if (COPY) {  // y[j3, j1, j2, j0] = x[j3, j2, j1, j0]: j0 fastest
-        const int j0 = idx % D, j3 = (idx / D) % E3;
-        y[out_base[pl] + j3 * D3 + j0] = s[(pl * E3 + j3) * P + j0];
-      } else {  // y[j0, j1, j2, j3]: j3 fastest, the column read of s
-        const int j3 = idx % E3, j0 = (idx / E3) % D;
-        y[out_base[pl] + j0 * D3 + j3] = s[(pl * E3 + j3) * P + j0];
+  using T = Tiles<E3, STAGING, COPY>;
+  constexpr int ROWS = T::ROWS, THREADS = T::THREADS;
+  const Planes<GEOM, T::NPL, COPY> planes{la, lb, passes};
+  if constexpr (COPY) {  // y[j3, j1, j2, j0] = x[j3, j2, j1, j0]: rows of 256 bytes
+    constexpr int PER = ROWS * D / 4 / THREADS;
+    for (int p = 0; p < passes; ++p) {
+      float4 v[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int idx = threadIdx.x + k * THREADS, r = idx / (D / 4), c = idx % (D / 4) * 4;
+        int in, out;
+        planes.at(p, r / E3, in, out);
+        v[k] = __ldg((const float4*)(x + in + r % E3 * D3 + c));
+      }
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int idx = threadIdx.x + k * THREADS, r = idx / (D / 4), c = idx % (D / 4) * 4;
+        int in, out;
+        planes.at(p, r / E3, in, out);
+        *(float4*)(y + out + r % E3 * D3 + c) = v[k];
       }
     }
-    __syncthreads();
+  } else {
+    extern __shared__ __align__(16) float ring[];
+    ring_run<T::STAGES, ROWS, THREADS>(ring, passes, RowsOfX<GEOM, E3, T::NPL>{x, planes},
+                            TransposeStage<GEOM, E3, ROWS, THREADS>{y, planes});
   }
 }
 
@@ -147,7 +279,7 @@ __device__ __forceinline__ void split3(float v, __nv_bfloat16 (&p)[3]) {
 
 template <int GEOM, bool HIGHEST>
 __global__ void __launch_bounds__(128)
-rev4_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int ra, int rb, int passes) {
+rev4_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int la, int lb, int passes) {
   __shared__ __align__(16) float s[D][MMA_PITCH];
   const int t = threadIdx.x, lane = t % 32, w = t / 32, g = lane / 4, tq = lane % 4;
   // the 16 x 16 identity as mma's A fragment: rows g and g + 8, columns
@@ -157,7 +289,7 @@ rev4_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int ra, int 
   const uint32_t a[4] = {diag, 0u, 0u, diag};
   for (int pass = 0; pass < passes; ++pass) {
     int j3o, j2, j1;
-    plane_of<GEOM>(ra, rb, blockIdx.y, blockIdx.x * passes + pass, j3o, j2, j1);
+    plane_of<GEOM>(la, lb, blockIdx.y, blockIdx.x * passes + pass, j3o, j2, j1);
     const int in_base = ((j3o * D + j2) * D + j1) * D, out_base = (j1 * D + j2) * D + j3o;
 #pragma unroll
     for (int k = 0; k < D * D / 4 / 128; ++k) {  // float4 loads, rows of 256 bytes
@@ -195,129 +327,100 @@ rev4_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int ra, int 
 }
 
 // --------------------------------------------------------------------------
-// rev4_async: CTA (run, range) owns the planes j2 in run * c2 .. + c2, j1 in
-// range * j1n .. + j1n, a ring of two (j3, j0) planes of pitch 68 (rows
-// 16-byte aligned for cp.async; the float4 column reads of 8 lanes hit 32
-// different banks).
-constexpr int RING_PITCH = D + 4;
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(gmem));
-}
-
-__global__ void __launch_bounds__(256)
-rev4_async_kernel(const float* __restrict__ x, float* __restrict__ y, int c2, int j1n) {
-  __shared__ __align__(16) float s[2][D][RING_PITCH];
-  const int t = threadIdx.x, planes = c2 * j1n;
-  auto plane = [&](int q, int& j2, int& j1) {
-    j2 = blockIdx.x * c2 + q / j1n;
-    j1 = blockIdx.y * j1n + q % j1n;
-  };
-  auto load = [&](int stage, int q) {
-    int j2, j1;
-    plane(q, j2, j1);
-    const float* src = x + (j2 * D + j1) * D;
-#pragma unroll
-    for (int k = 0; k < D * D / 4 / 256; ++k) {
-      const int idx = t + k * 256, j3 = idx / (D / 4), c = idx % (D / 4) * 4;
-      cp_async16(&s[stage][j3][c], src + j3 * D3 + c);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  load(0, 0);
-  for (int q = 0; q < planes; ++q) {
-    if (q + 1 < planes) {
-      load((q + 1) % 2, q + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    int j2, j1;
-    plane(q, j2, j1);
-    float* dst = y + (j1 * D + j2) * D;
-#pragma unroll
-    for (int k = 0; k < D * D / 4 / 256; ++k) {  // lanes on consecutive j3: 128-byte rows
-      const int idx = t + k * 256, j3 = idx % D, c = idx / D * 4;
-      const float4 v = *(const float4*)&s[q % 2][j3][c];
-      dst[(c + 0) * D3 + j3] = v.x;
-      dst[(c + 1) * D3 + j3] = v.y;
-      dst[(c + 2) * D3 + j3] = v.z;
-      dst[(c + 3) * D3 + j3] = v.w;
-    }
-    __syncthreads();  // the stage is refilled by the next iteration's load
-  }
-}
-
-// --------------------------------------------------------------------------
 // Host side.
 
 bool runs_ok(int d, int ra, int rb) {
   return d == D && ra >= 1 && rb >= 1 && D % ra == 0 && D % rb == 0;
 }
 
-// The largest divisor of units that keeps the grid near TARGET_CTAS.
-int choose_split(int units, int nblk) {
-  const int want = (TARGET_CTAS + nblk - 1) / nblk;
+int log2_of(int v) { return 31 - __builtin_clz((unsigned)v); }
+
+// The largest divisor of units that is at most want (at least 1).
+int choose_split(int units, int want) {
   int split = 1;
   for (int s = 1; s <= units && s <= want; ++s)
     if (units % s == 0) split = s;
   return split;
 }
 
-template <int GEOM, int E3, int NPL, bool COPY>
-cudaError_t tiles_launch(const float* x, float* y, int ra, int rb, cudaStream_t s) {
-  const int planes = GEOM == J2J1 ? ra * rb : rb * D;
-  if (planes % NPL != 0) return cudaErrorInvalidValue;
-  const int nblk = (D / ra) * (D / rb), units = planes / NPL;
-  const int split = choose_split(units, nblk);
-  const int smem = NPL * E3 * (D + 1) * (int)sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      rev4_tiles_kernel<GEOM, E3, NPL, COPY>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
-  rev4_tiles_kernel<GEOM, E3, NPL, COPY><<<dim3(split, nblk), 256, smem, s>>>(x, y, ra, rb,
-                                                                            units / split);
-  return cudaGetLastError();
+// Once per instance: its dynamic shared memory allowed, and the CTAs of it
+// that reside on the card at once (occupancy calculator times SMs).
+template <class K>
+cudaError_t instance_setup(K kernel, int threads, int smem, int& resident) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  resident = per_sm * sms;
+  return e;
 }
 
-// J3J2: E3 = ra; NPL = 1 (PLANE) or 256 / E3 (BLOCK, 66.5 KB).
-template <int E3>
-cudaError_t tiles_j3j2(const float* x, float* y, int ra, int rb, int staging, cudaStream_t s) {
-  if (staging == PLANE) return tiles_launch<J3J2, E3, 1, false>(x, y, ra, rb, s);
-  return tiles_launch<J3J2, E3, 256 / E3, false>(x, y, ra, rb, s);
+// The launch policy: T's stage, threads and shared memory; a grid of TPU
+// blocks (grid.y) each split over grid.x CTAs of equal passes, one wave of
+// the card's resident CTAs (one_cta_a_block: one CTA a TPU block, as
+// v_dma4d's program per block).
+template <int GEOM, int E3, int STAGING, bool COPY>
+cudaError_t tiles_launch(const float* x, float* y, int ra, int rb, bool one_cta_a_block,
+                         cudaStream_t s) {
+  using T = Tiles<E3, STAGING, COPY>;
+  const int planes = GEOM == J2J1 ? ra * rb : rb * D;
+  if (planes % T::NPL != 0) return cudaErrorInvalidValue;
+  static int resident = 0;
+  static const cudaError_t ready = instance_setup(rev4_tiles_kernel<GEOM, E3, STAGING, COPY>,
+                                                  T::THREADS, T::SMEM, resident);
+  if (ready != cudaSuccess) return ready;
+  const int nblk = (D / ra) * (D / rb), units = planes / T::NPL;
+  const int split = one_cta_a_block ? 1 : choose_split(units, resident / nblk);
+  rev4_tiles_kernel<GEOM, E3, STAGING, COPY><<<dim3(split, nblk), T::THREADS, T::SMEM, s>>>(
+      x, y, log2_of(ra), log2_of(rb), units / split);
+  return cudaGetLastError();
 }
 
 template <int GEOM, bool HIGHEST>
 cudaError_t mma_launch(const float* x, float* y, int ra, int rb, cudaStream_t s) {
   const int units = GEOM == J2J1 ? ra * rb : rb * D;
-  const int nblk = (D / ra) * (D / rb), split = choose_split(units, nblk);
-  rev4_mma_kernel<GEOM, HIGHEST><<<dim3(split, nblk), 128, 0, s>>>(x, y, ra, rb, units / split);
+  const int nblk = (D / ra) * (D / rb);
+  const int split = choose_split(units, (TARGET_CTAS + nblk - 1) / nblk);
+  rev4_mma_kernel<GEOM, HIGHEST><<<dim3(split, nblk), 128, 0, s>>>(x, y, log2_of(ra), log2_of(rb),
+                                                                 units / split);
   return cudaGetLastError();
 }
 
+bool aligned16(const void* x, const void* y) { return (((uintptr_t)x | (uintptr_t)y) & 15) == 0; }
+
 }  // namespace
 
-// x, y: 64^4 f32 (d = 64). geom J2J1 (0): ra, rb runs of j2 and j1; J3J2 (1):
-// ra = b3 in {8, 16, 64}, rb a run of j2. staging PLANE (0) or BLOCK (1);
-// copy = 1 (J2J1, PLANE only) writes x.permute(0, 2, 1, 3).
+// x, y: 64^4 f32 (d = 64), 16-byte aligned. geom J2J1 (0): ra, rb runs of j2
+// and j1; J3J2 (1): ra = b3 in {8, 16, 64}, rb a run of j2. staging PLANE
+// (0) or BLOCK (1); copy = 1 (J2J1, PLANE only) writes x.permute(0, 2, 1, 3).
+// Each tiles_launch<GEOM, E3, STAGING, COPY> below is one kernel instance.
 extern "C" int strided_rev4_tiles(const void* x, void* y, int d, int geom, int ra, int rb,
                                   int staging, int copy, void* stream) {
-  if (!runs_ok(d, ra, rb) || (staging != PLANE && staging != BLOCK) || (geom != J2J1 && geom != J3J2))
+  if (!runs_ok(d, ra, rb) || (staging != PLANE && staging != BLOCK) ||
+      (geom != J2J1 && geom != J3J2) || !aligned16(x, y))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* a = (const float*)x;
   float* b = (float*)y;
   if (copy) {
     if (geom != J2J1 || staging != PLANE) return (int)cudaErrorInvalidValue;
-    return (int)tiles_launch<J2J1, D, 1, true>(a, b, ra, rb, s);
+    return (int)tiles_launch<J2J1, D, PLANE, true>(a, b, ra, rb, false, s);
   }
   if (geom == J2J1)
-    return (int)(staging == PLANE ? tiles_launch<J2J1, D, 1, false>(a, b, ra, rb, s)
-                                  : tiles_launch<J2J1, D, 4, false>(a, b, ra, rb, s));
-  if (ra == 8) return (int)tiles_j3j2<8>(a, b, ra, rb, staging, s);
-  if (ra == 16) return (int)tiles_j3j2<16>(a, b, ra, rb, staging, s);
-  if (ra == 64) return (int)tiles_j3j2<64>(a, b, ra, rb, staging, s);
+    return (int)(staging == PLANE ? tiles_launch<J2J1, D, PLANE, false>(a, b, ra, rb, false, s)
+                                  : tiles_launch<J2J1, D, BLOCK, false>(a, b, ra, rb, false, s));
+  const bool plane = staging == PLANE;
+  if (ra == 8)
+    return (int)(plane ? tiles_launch<J3J2, 8, PLANE, false>(a, b, ra, rb, false, s)
+                       : tiles_launch<J3J2, 8, BLOCK, false>(a, b, ra, rb, false, s));
+  if (ra == 16)
+    return (int)(plane ? tiles_launch<J3J2, 16, PLANE, false>(a, b, ra, rb, false, s)
+                       : tiles_launch<J3J2, 16, BLOCK, false>(a, b, ra, rb, false, s));
+  if (ra == 64)
+    return (int)(plane ? tiles_launch<J3J2, 64, PLANE, false>(a, b, ra, rb, false, s)
+                       : tiles_launch<J3J2, 64, BLOCK, false>(a, b, ra, rb, false, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -338,12 +441,13 @@ extern "C" int strided_rev4_mma(const void* x, void* y, int d, int geom, int ra,
                        : mma_launch<J3J2, false>(a, b, ra, rb, s));
 }
 
-// c2: the run of j2 a CTA owns (divides 64); its j1 range is 16 / c2 planes
-// long (at least 1), so a CTA transposes 16 planes and the grid holds 256.
+// rev4_async (v_dma4d): c2, the run of j2 a CTA owns (divides 64); its run of
+// j1 is 16 / c2 planes long (at least 1), so a CTA transposes 16 planes
+// through the ring and the grid holds 256 CTAs: rev4_tiles' J2J1 PLANE
+// instance over blocks of runs (c2, j1 run), one CTA a block.
 extern "C" int strided_rev4_async(const void* x, void* y, int d, int c2, void* stream) {
-  if (!runs_ok(d, c2, 1) || ((uintptr_t)x & 15)) return (int)cudaErrorInvalidValue;
+  if (!runs_ok(d, c2, 1) || !aligned16(x, y)) return (int)cudaErrorInvalidValue;
   const int j1n = c2 >= 16 ? 1 : 16 / c2;
-  rev4_async_kernel<<<dim3(D / c2, D / j1n), 256, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)y, c2, j1n);
-  return (int)cudaGetLastError();
+  return (int)tiles_launch<J2J1, D, PLANE, false>((const float*)x, (float*)y, c2, j1n, true,
+                                                  (cudaStream_t)stream);
 }

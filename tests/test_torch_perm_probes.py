@@ -190,3 +190,142 @@ def test_perm_probe_modules_import_no_jax():
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("script, name, make, force", CASES,
+                         ids=[f"{c[0].__name__.rsplit('.', 1)[1]}-{c[1]}" for c in CASES])
+def test_variant_written_through_out_matches_the_tpu_probe(script, name, make, force):
+    """Each variant written into a NaN-filled ``out=`` (as the card's checks
+    write it) equals the JAX probe and fills ``out``."""
+    x = _input(len(name) + 1)
+    fn, _plain = script.variants()[name]
+    out = torch.full((D,) * 4, float("nan"))
+    got = _port(lambda t: fn(t, out=out), x)
+    assert not np.isnan(out.numpy()).any()
+    np.testing.assert_array_equal(got, out.numpy())
+    np.testing.assert_array_equal(got, _jax(make(), x, force))
+
+
+def _square(x):
+    return x.reshape(D * D, D * D)
+
+
+def _sym(a):
+    return (a + a.T) * np.float32(0.5)
+
+
+# each wrapper with an ``out=``: (its input made from the 4-D seeded input,
+# call(input, out), the plain result as numpy)
+def _out_wrappers():
+    from strided_tpu_torch.benchmarks import exp_sym as es
+
+    same = lambda x: x  # noqa: E731
+    return {
+        "rev4_tiles": (same, lambda a, out: pk.rev4_tiles(a, pk.J3J2, 8, 8, pk.BLOCK, out=out),
+                       _rev),
+        "rev4_mma": (same, lambda a, out: pk.rev4_mma(a, pk.J2J1, 8, 8, out=out), _rev),
+        "rev4_async": (same, lambda a, out: pk.rev4_async(a, 4, out=out), _rev),
+        "transpose_tiles": (_square, lambda a, out: es.transpose_tiles(a, 32, out=out),
+                            lambda a: a.T),
+        "sym_two_read": (_square, lambda a, out: es.sym_two_read(a, 64, out=out), _sym),
+        "pair_tiles": (_square, lambda a, out: es.pair_tiles(a, 32, out=out), _sym),
+    }
+
+
+OUT_WRAPPERS = ["rev4_tiles", "rev4_mma", "rev4_async", "transpose_tiles", "sym_two_read",
+                "pair_tiles"]
+
+
+@pytest.mark.parametrize("wrapper", OUT_WRAPPERS)
+def test_out_is_written_and_returned(wrapper):
+    make, call, want = _out_wrappers()[wrapper]
+    a = make(torch.from_numpy(_input(3)))
+    out = torch.full_like(a, float("nan"))
+    before = dict(pk.LAUNCHES)
+    res = call(a, out)
+    assert res is out and pk.LAUNCHES == before
+    np.testing.assert_array_equal(out.numpy(), want(a.numpy()))
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "overlap", "strided"])
+@pytest.mark.parametrize("wrapper", OUT_WRAPPERS)
+def test_out_refuses_a_wrong_tensor(wrapper, bad):
+    """A wrong shape, dtype or layout, or an ``out`` that shares bytes with
+    the input (half of it here), is refused with ``ValueError``."""
+    make, call, _want = _out_wrappers()[wrapper]
+    a = make(torch.from_numpy(_input(4)))
+    n = a.numel()
+    if bad == "overlap":
+        buf = torch.zeros(n * 3 // 2)
+        buf[:n].copy_(a.flatten())
+        a, out = buf[:n].view(a.shape), buf[n // 2:].view(a.shape)
+    else:
+        out = {"shape": lambda: torch.zeros(n // 2).view(a.shape[0] // 2, *a.shape[1:]),
+               "dtype": lambda: torch.zeros_like(a, dtype=torch.float64),
+               "strided": lambda: torch.zeros_like(a).transpose(0, 1)}[bad]()
+    with pytest.raises(ValueError):
+        call(a, out)
+
+
+def _tiles_requests():
+    """``(geometry, ra, staging, copy)`` of every ``rev4_tiles`` call the
+    three scripts' variants make, recorded by a stand-in for the wrapper."""
+    seen = set()
+
+    def record(x, geometry, ra, rb, staging=pk.PLANE, copy=False, out=None):
+        seen.add(pk.tiles_instance(geometry, ra, staging, copy))
+        return x
+
+    x = torch.empty((pk.KERNEL_D,) * 4, device="meta")
+    for script in (p2, p4, pp):
+        saved = script.rev4_tiles
+        script.rev4_tiles = record
+        try:
+            for name, (fn, _plain) in script.variants().items():
+                if "rev4_tiles" in _kernel_of(name):
+                    fn(x)
+        finally:
+            script.rev4_tiles = saved
+    return seen
+
+
+def _kernel_of(name):
+    if name.startswith("mxu"):
+        return "rev4_mma"
+    if name.startswith(("dma4d", "t2d")) or name == "plain":
+        return "other"
+    return "rev4_tiles"
+
+
+def _source_instances():
+    """``(geometry, E3, staging, copy)`` of every ``tiles_launch`` branch of
+    ``csrc/exp_perm.cu``'s dispatchers, and the one ``rev4_async`` takes."""
+    import re
+
+    src = (ROOT / "strided_tpu_torch" / "csrc" / "exp_perm.cu").read_text()
+    names = {"J2J1": pk.J2J1, "J3J2": pk.J3J2, "PLANE": pk.PLANE, "BLOCK": pk.BLOCK,
+             "D": pk.KERNEL_D, "true": True, "false": False}
+    found = {}
+    for fn in ("strided_rev4_tiles", "strided_rev4_async"):
+        body = src[src.index(f'extern "C" int {fn}('):]
+        body = body[:body.index("\n}\n")]
+        found[fn] = {tuple(names[v] if v in names else int(v) for v in m)
+                     for m in re.findall(r"tiles_launch<(\w+), (\w+), (\w+), (\w+)>", body)}
+    return found
+
+
+def test_every_variant_has_a_kernel_instance_in_the_source():
+    """Every (geometry, E3, staging, copy) the scripts' variants ask of
+    ``rev4_tiles`` has a dispatch branch in ``csrc/exp_perm.cu``, the
+    wrapper's instance list and J3J2 heights are the source's, and
+    ``rev4_async`` runs the J2J1 PLANE instance: no variant meets
+    ``cudaErrorInvalidValue`` on the card."""
+    found = _source_instances()
+    requests = _tiles_requests()
+    assert len(requests) >= 6
+    assert requests <= found["strided_rev4_tiles"]
+    assert set(pk.TILES_INSTANCES) == found["strided_rev4_tiles"]
+    assert len(pk.TILES_INSTANCES) == len(set(pk.TILES_INSTANCES))
+    assert {e for g, e, _s, _c in found["strided_rev4_tiles"] if g == pk.J3J2} \
+        == set(pk.J3J2_HEIGHTS)
+    assert found["strided_rev4_async"] == {pk.tiles_instance(pk.J2J1, pk.KERNEL_D)}
