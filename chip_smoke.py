@@ -8,10 +8,11 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 
 1. device: a CUDA device is required; prints its name and power limit;
 2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc, and
-   prints ptxas's registers, stack frame and spills of every K1, K3, K4 and
-   rank-4 reversal kernel; K1's 64-row instance (the main path's), every
-   instance of K3's program kernel and every ``rev4_tiles`` instance must not
-   spill, and every ``rev4_tiles`` and ``rev4_mma`` instance must be built;
+   prints ptxas's registers, stack frame and spills of every K1, K3, K4,
+   transpose-pair probe and rank-4 reversal kernel; K1's 64-row instance (the main path's), every instance
+   of K3's program kernel and every ``rev4_tiles`` and ``pair_tiles``
+   instance must not spill, and every ``rev4_tiles``, ``rev4_mma`` and
+   ``pair_tiles`` instance must be built;
 3. kernel vs plain: the fused-ADMM kernel against its plain PyTorch version
    on the same inputs, and both against the same iterations in f64: the
    main-path QP (D=200) at B = 16384, at 64 * #SMs +- 1 (one row past or
@@ -79,12 +80,16 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     512^3 with ``kernel_reductions`` off and on (exact, route recorded) and
     ``v @ w``; K2's launches read for this phase alone; times of ``mul`` and
     ``axpby`` against plain;
-11. the transpose-pair probes: ``exp_sym`` (every variant at 8192^2) and
-    ``exp_pair_rect`` (at 8064^2) through their ``main``, with the four probe
-    kernels' launches read for that run alone; each kernel at every tile
-    shape, written into a NaN-filled output made just before the call,
-    exactly equal to its plain version (NaN pattern included for
-    ``rect_pairs``) and timed against it in turns; both probe modules once
+11. the transpose-pair probes: ``exp_sym`` (every variant at 8192^2, each
+    checked into a NaN-filled output) and ``exp_pair_rect`` (at 8064^2)
+    through their ``main``, with the four probe kernels' launches read for
+    that run alone; each kernel at every tile shape (``pair_tiles`` in all
+    four modes: full, copy, and each skipping the diagonal's second write),
+    written into a NaN-filled output made just before the call, exactly
+    equal to its plain version (NaN pattern included for ``rect_pairs``)
+    and timed against it in turns, with the one PyTorch call computing the
+    same function inside the turns (``x.T.contiguous()``, ``torch.lerp(x,
+    x.T, 0.5)``, ``x.clone()`` for the copy mode); both probe modules once
     more as ``python -m``;
 12. the streaming-reduction and rank-4 reversal probes: ``exp_reduce`` (at
     8192^2), ``exp_perm2``, ``exp_perm4`` and ``exp_perm_probe`` (at 64^4)
@@ -184,6 +189,7 @@ def main() -> None:
         raise RuntimeError(f"ptxas: expected {K3_PROGRAM_INSTANCES} reduce_program instances "
                            f"and no spills, got {k3_programs}")
     reversal_instances(report)
+    pair_instances(report)
 
     rho, alpha, iters = 8.0, 1.6, 6
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
@@ -308,6 +314,22 @@ def reversal_instances(report) -> None:
         if len(found) != 1 or (no_spill and found[0]):
             raise RuntimeError(f"ptxas: {key} is missing or spills (spill stores {found})")
     print(f"[2 build] exp_perm: {len(want)} rev4 instances built, no rev4_tiles spill")
+
+
+def pair_instances(report) -> None:
+    """Phase 2's check of ``csrc/exp_sym.cu``: every ``pair_tiles`` instance
+    the wrapper dispatches to (tile x ``do_transpose`` x ``skip_diag``) is
+    built and does not spill."""
+    from strided_tpu_torch.benchmarks import exp_sym as es
+
+    built = {name: spill for src, name, _regs, spill in report if src == "exp_sym"}
+    want = [f"pair_tiles_kernelILi{t}ELb{d}ELb{k}E"
+            for t in es.SQUARE_TILES for d in (0, 1) for k in (0, 1)]
+    for key in want:
+        found = [spill for name, spill in built.items() if key in name]
+        if len(found) != 1 or found[0]:
+            raise RuntimeError(f"ptxas: {key} is missing or spills (spill stores {found})")
+    print(f"[2 build] exp_sym: {len(want)} pair_tiles instances built, no spill")
 
 
 def k1_times(dev, ctrl, rng, batch, card, *, rho, alpha, iters) -> dict:
@@ -1011,7 +1033,8 @@ def _report(phase, what, unit, amount, times, card):
           f"plain {p1:.4f}/{p2:.4f} ms ({amount / p / 1e6:.0f} {unit}){lib} [{card}]")
 
 
-def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor", "exp_perm")) -> list:
+def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor", "exp_sym",
+                         "exp_perm")) -> list:
     """Registers, stack frame and spills of each kernel of ``sources``, from
     the ptxas report (``-Xptxas -v``) the build keeps beside the library.
     Returns ``(source, kernel, registers, spill bytes stored)`` for each."""
@@ -1144,29 +1167,37 @@ def probe_phases(dev, card):
     xr = torch.randn(er.N, er.N, device=dev, generator=gen)
     nans = torch.full_like(xr, float("nan"))
     out_k, out_p = nans.clone(), nans.clone()  # NaN-filled once, outside the timed loops
-    # each case: (kernel, input, kernel(out), plain(out)); the timed calls
-    # take the default out (a new tensor; rect_pairs': out_k and out_p)
+    # the one PyTorch call of each function (the JSON line's library_ms),
+    # timed inside the kernel's turns
+    lerp = lambda: torch.lerp(x, x.T, 0.5)  # noqa: E731
+    clone = lambda: x.clone()  # noqa: E731
+    # each case: (kernel, shape, bytes, input, kernel(out), plain(out), the
+    # one call or None); the timed calls take the default out (a new tensor;
+    # rect_pairs': out_k and out_p)
     cases = [("transpose_tiles", f"{th}x{tw}", 2 * 4 * x.numel(), x,
               lambda out=None, th=th, tw=tw: es.transpose_tiles(x, th, tw, out=out),
-              lambda out=None: es.transpose_reference(x))
+              lambda out=None: es.transpose_reference(x), lambda: x.T.contiguous())
              for th, tw in ((32, 32), (64, 64), *es.RECT_TILES)]
     cases += [("sym_two_read", f"{t}", 3 * 4 * x.numel(), x,
                lambda out=None, t=t: es.sym_two_read(x, t, out=out),
-               lambda out=None: es.sym_reference(x)) for t in es.SQUARE_TILES]
+               lambda out=None: es.sym_reference(x), lerp) for t in es.SQUARE_TILES]
     for t in es.SQUARE_TILES:
-        for label, kw, plain in (("full", {}, lambda out=None: es.sym_reference(x)),
-                                 ("copy", dict(do_transpose=False), lambda out=None: x.clone()),
-                                 ("full skipdiag", dict(skip_diag=True),
-                                  lambda out=None: es.sym_reference(x))):
+        for label, kw, plain, library in (
+                ("full", {}, lambda out=None: es.sym_reference(x), lerp),
+                ("copy", dict(do_transpose=False), lambda out=None: x.clone(), clone),
+                ("full skipdiag", dict(skip_diag=True), lambda out=None: es.sym_reference(x), lerp),
+                ("copy skipdiag", dict(do_transpose=False, skip_diag=True),
+                 lambda out=None: x.clone(), clone)):
             cases.append(("pair_tiles", f"{t} {label}", 2 * 4 * x.numel(), x,
-                          lambda out=None, t=t, kw=kw: es.pair_tiles(x, t, out=out, **kw), plain))
+                          lambda out=None, t=t, kw=kw: es.pair_tiles(x, t, out=out, **kw), plain,
+                          library))
     for T in er.TILES:
         nbytes = len(er.rect_worklist(er.N, T)) * 4 * T * 2 * T * 4
         cases.append(("rect_pairs", f"{T}x{2 * T}", nbytes, xr,
                       lambda out=out_k, T=T: er.rect_pairs(xr, out, T)[0],
-                      lambda out=out_p, T=T: er.rect_pairs_reference(xr, out, T)[0]))
+                      lambda out=out_p, T=T: er.rect_pairs_reference(xr, out, T)[0], None))
     best, err = {}, {}
-    for name, shape, nbytes, src, kernel, plain in cases:
+    for name, shape, nbytes, src, kernel, plain, library in cases:
         # written into a NaN-filled tensor made just before the call: an
         # element the kernel skips stays NaN and fails the comparison
         got = kernel(torch.full_like(src, float("nan")))
@@ -1178,10 +1209,12 @@ def probe_phases(dev, card):
             raise RuntimeError(f"{name} {shape}: kernel off its plain version by {e:.3e}")
         del got, want
         err[name] = max(err.get(name, 0.0), e)
-        times = _turns(kernel, plain, reps=20)
+        times = _turns(kernel, plain, reps=20, library=library)
         _report(11, f"{name} {shape}", "GB/s", nbytes, times, card)
-        if "copy" not in shape and (name not in best or times[0] < best[name][0]):
-            best[name] = (*times, nbytes)  # the JSON line: each kernel's fastest tile shape
+        if name == "pair_tiles" and shape == "64 copy":
+            copy = {"copy_ms": times[0], "copy_library_ms": times[3]}  # a.clone() in its turns
+        if "copy" not in shape and (name not in best or times[0] < best[name][0][0]):
+            best[name] = (times, nbytes)  # the JSON line: each kernel's fastest tile shape
     for module in ("exp_sym", "exp_pair_rect"):
         proc = subprocess.run([sys.executable, "-m", f"strided_tpu_torch.benchmarks.{module}"],
                               capture_output=True, text=True, timeout=300)
@@ -1194,19 +1227,18 @@ def probe_phases(dev, card):
     # the bound counts each input element read once and each output written
     # once: sym_two_read's second read of A is not work the function needs
     need = {"transpose_tiles": 2 * 4 * x.numel(), "sym_two_read": 2 * 4 * x.numel(),
-            "pair_tiles": 2 * 4 * x.numel(), "rect_pairs": best["rect_pairs"][3]}
-    library = {"transpose_tiles": _library("x.T.contiguous() 8192^2", lambda: x.T.contiguous()),
-               "sym_two_read": None, "pair_tiles": None, "rect_pairs": None}
+            "pair_tiles": 2 * 4 * x.numel(), "rect_pairs": best["rect_pairs"][1]}
 
-    def entry(name, source, replaces):
+    def entry(name, source, replaces, **extra):
+        times = best[name][0]
         return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-                "ms": best[name][0], "plain_ms": best[name][1], **bound(need[name]),
-                "library_ms": library[name]}
+                "ms": times[0], "plain_ms": times[1], **bound(need[name]),
+                "library_ms": times[3] if len(times) > 3 else None, **extra}
 
     return [entry("transpose_tiles", "exp_sym", "benchmarks/exp_sym.py:43"),
             entry("sym_two_read", "exp_sym", "benchmarks/exp_sym.py:63"),
-            entry("pair_tiles", "exp_sym", "benchmarks/exp_sym.py:222"),
+            entry("pair_tiles", "exp_sym", "benchmarks/exp_sym.py:222", **copy),
             entry("rect_pairs", "exp_pair_rect", "benchmarks/exp_pair_rect.py:110")]
 
 

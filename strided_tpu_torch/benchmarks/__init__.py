@@ -39,3 +39,9 @@ def into(out: torch.Tensor | None, result: torch.Tensor) -> torch.Tensor:
     """``result`` written into ``out`` and ``out`` returned, or ``result``
     itself when there is no ``out``: the plain versions' side of ``out=``."""
     return result if out is None else out.copy_(result)
+
+
+def same(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit as values, NaNs in the same places."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan]))

@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from . import cli
+from . import cli, same
 from .exp_sym import pair_tiles, sym_reference
 
 __all__ = ["rect_pairs", "rect_pairs_reference", "rect_worklist", "variants", "run", "main",
@@ -138,12 +138,6 @@ def variants(n: int):
                                   lambda x, o, T=T: rect_pairs_reference(x, o.clone(), T)[0],
                                   len(rect_worklist(n, T)) * 4 * T * 2 * T * 4)
     return V
-
-
-def same(got: torch.Tensor, want: torch.Tensor) -> bool:
-    """Equal bit for bit as values, NaNs in the same places."""
-    nan = torch.isnan(want)
-    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan]))
 
 
 def run(names=None, n: int = N, reps: int = 20, seed: int = 0):

@@ -22,6 +22,10 @@ launches on the current stream for a CUDA tensor (raising on a non-zero
 plain version beside it. Each takes an optional ``out=``, a contiguous
 tensor of the result's shape, dtype and device that does not overlap the
 input, writes the result there (on either path) and returns it.
+``pair_tiles`` moves 16-byte words, so it refuses an input or ``out`` whose
+base is not 16-byte aligned, on either path. ``run`` checks each variant
+written into a NaN-filled ``out`` (:func:`agrees`), so an element a kernel
+skips fails the check.
 """
 
 from __future__ import annotations
@@ -31,10 +35,10 @@ import functools
 
 import torch
 
-from . import check_out, cli, into
+from . import check_out, cli, into, same
 
 __all__ = ["transpose_tiles", "transpose_reference", "sym_two_read", "sym_reference",
-           "pair_tiles", "pair_reference", "variants", "run", "main", "LAUNCHES"]
+           "pair_tiles", "pair_reference", "variants", "agrees", "run", "main", "LAUNCHES"]
 
 LAUNCHES = {"transpose_tiles": 0, "sym_two_read": 0, "pair_tiles": 0}
 SQUARE_TILES = (32, 64)  # csrc/exp_sym.cu: sym_two_read and pair_tiles
@@ -130,11 +134,15 @@ def pair_tiles(a: torch.Tensor, tile: int = 32, do_transpose: bool = True,
                skip_diag: bool = False, out: torch.Tensor | None = None) -> torch.Tensor:
     """The tile-pair schedule (``v_pair``): ``(a + a.T) * 0.5`` with
     ``do_transpose``, else a pair copy ``a``; ``skip_diag`` writes a diagonal
-    pair's tile once (same result)."""
+    pair's tile once (same result). ``a`` and ``out`` must be 16-byte
+    aligned."""
     if tile not in SQUARE_TILES:
         raise ValueError(f"pair_tiles: no kernel for tile {tile}")
     n = _check(a, "pair_tiles", tile)
     check_out("pair_tiles", a, out)
+    for name, t in (("a", a), ("out", out)):  # its threads move 16-byte words
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"pair_tiles: {name} is not 16-byte aligned")
     if a.device.type == "cpu":
         return pair_reference(a, do_transpose, out)
     ii, jj = pair_worklist(n // tile, a.device)
@@ -144,10 +152,11 @@ def pair_tiles(a: torch.Tensor, tile: int = 32, do_transpose: bool = True,
 
 
 def variants():
-    """``{name: (fn, want)}``: each variant and the plain result it must equal."""
+    """``{name: (fn(x, out=None), want(x))}``: each variant, written into
+    ``out`` when one is given, and the plain result it must equal."""
     from ..core.kernels_special import symmetrize
 
-    stream = lambda x: x + 1.0  # noqa: E731
+    stream = lambda x, out=None: torch.add(x, 1.0, out=out)  # noqa: E731
     V = {"stream": (stream, stream),
          "plain_sym": (sym_reference, sym_reference),
          "plain_transpose": (transpose_reference, transpose_reference)}
@@ -162,13 +171,26 @@ def variants():
     for th, tw in RECT_TILES:
         V[f"t2d_rect_{th}x{tw}"] = (functools.partial(transpose_tiles, th=th, tw=tw),
                                     transpose_reference)
-    V["prod_kernel"] = (lambda x: symmetrize(x, 0.5), sym_reference)  # K2
+    # K2 writes its own new output, which is copied into ``out`` when one is given
+    V["prod_kernel"] = (lambda x, out=None: into(out, symmetrize(x, 0.5)), sym_reference)
     return V
 
 
+OWN_OUTPUT = {"prod_kernel"}  # variants that allocate their output: timed without ``out``
+
+
+def agrees(fn, want, x: torch.Tensor) -> bool:
+    """``fn(x, out=...)`` written into a NaN-filled tensor made just before
+    the call equals ``want(x)`` bit for bit, NaNs in the same places: an
+    element ``fn`` leaves unwritten stays NaN and fails."""
+    return same(fn(x, out=torch.full_like(x, float("nan"))), want(x))
+
+
 def run(names=None, n: int = 8192, reps: int = 20, seed: int = 0):
-    """Check and time ``names`` (default: all) on a seeded ``n x n`` f32
-    matrix on the card; returns one dict per variant."""
+    """Check (:func:`agrees`) and time ``names`` (default: all) on a seeded
+    ``n x n`` f32 matrix on the card; returns one dict per variant. The
+    timed calls write into one output, NaN-filled once outside the loop,
+    except those of :data:`OWN_OUTPUT`, which time the kernel's own output."""
     from ..bench import cuda_ms
 
     if not torch.cuda.is_available():
@@ -176,12 +198,14 @@ def run(names=None, n: int = 8192, reps: int = 20, seed: int = 0):
     V = variants()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(n, n, device="cuda", generator=gen)
+    out = torch.full_like(x, float("nan"))
     nbytes = 2 * x.numel() * 4  # one read and one write of the matrix
     rows = []
     for name in names or list(V):
         fn, want = V[name]
-        ok = (fn(x) - want(x)).abs().max().item() == 0.0
-        ms = cuda_ms(lambda: fn(x), reps=reps)
+        ok = agrees(fn, want, x)
+        timed = (lambda: fn(x)) if name in OWN_OUTPUT else (lambda: fn(x, out=out))
+        ms = cuda_ms(timed, reps=reps)
         rows.append({"v": name, "n": n, "gbs": nbytes / ms / 1e6, "ok": ok, "ms": ms})
     return rows
 

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "probe_tiles.cuh"
+
 namespace {
 
 constexpr int D = 64;                 // the extent of each of the four axes
@@ -78,59 +80,9 @@ __device__ __forceinline__ void plane_of(int la, int lb, int blk, int q, int& j3
   }
 }
 
-// --------------------------------------------------------------------------
-// The cp.async ring: stages of ROWS rows of 64 floats at a pitch of 68
-// (272-byte rows: 16-byte aligned for cp.async, and rows 4 apart 16 banks
-// apart, which the sub-block map below uses).
-constexpr int RING_PITCH = D + 4;
+// The ring's rows are whole (j3, j0) rows of 64 floats (probe_tiles.cuh).
+constexpr int RING_PITCH = probe::ring_pitch<D>;
 constexpr int BLOCK_ROWS = 128;  // BLOCK's stage: 34.8 KB, so the ring leaves 2 CTAs an SM
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>  // wait until at most N of this thread's groups are in flight
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// One stage <- ROWS rows of 64 floats, row r of pass p from src(p, r): 16
-// threads a 256-byte row, a constant trip count, one commit group.
-template <int ROWS, int THREADS, class Src>
-__device__ __forceinline__ void ring_fill(float* stage, const Src& src, int p) {
-  static_assert(ROWS * D / 4 % THREADS == 0, "a stage is whole rounds of the block");
-#pragma unroll
-  for (int k = 0; k < ROWS * D / 4 / THREADS; ++k) {
-    const int idx = threadIdx.x + k * THREADS, r = idx / (D / 4), c = idx % (D / 4) * 4;
-    cp_async16(stage + r * RING_PITCH + c, src(p, r) + c);
-  }
-  cp_async_commit();
-}
-
-// passes stages through a ring of STAGES: use(stage, p) runs while the
-// copies of the next STAGES - 1 passes are in flight. One barrier a pass:
-// it publishes pass p's rows and frees the stage of pass p - 1, which the
-// fill right after it reuses.
-template <int STAGES, int ROWS, int THREADS, class Src, class Use>
-__device__ __forceinline__ void ring_run(float* ring, int passes, const Src& src, const Use& use) {
-  static_assert(STAGES >= 2, "a fill overlaps a use");
-  constexpr int STAGE = ROWS * RING_PITCH;
-  for (int p = 0; p < STAGES - 1 && p < passes; ++p)
-    ring_fill<ROWS, THREADS>(ring + p * STAGE, src, p);
-  for (int p = 0; p < passes; ++p) {
-    if (p + STAGES - 2 < passes) cp_async_wait<STAGES - 2>();
-    else cp_async_wait<0>();
-    __syncthreads();
-    const int f = p + STAGES - 1;
-    if (f < passes) ring_fill<ROWS, THREADS>(ring + f % STAGES * STAGE, src, f);
-    use(ring + p % STAGES * STAGE, p);
-  }
-}
 
 // --------------------------------------------------------------------------
 // rev4_tiles. The launch policy of an instance, read by the kernel and by
@@ -244,8 +196,9 @@ rev4_tiles_kernel(const float* __restrict__ x, float* __restrict__ y, int la, in
     }
   } else {
     extern __shared__ __align__(16) float ring[];
-    ring_run<T::STAGES, ROWS, THREADS>(ring, passes, RowsOfX<GEOM, E3, T::NPL>{x, planes},
-                            TransposeStage<GEOM, E3, ROWS, THREADS>{y, planes});
+    probe::ring_run<T::STAGES, ROWS, D, THREADS>(ring, passes,
+                                                 RowsOfX<GEOM, E3, T::NPL>{x, planes},
+                                                 TransposeStage<GEOM, E3, ROWS, THREADS>{y, planes});
   }
 }
 

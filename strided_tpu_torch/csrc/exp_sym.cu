@@ -23,9 +23,21 @@
 // Loops of constant trip count (probe_tiles.cuh) let each thread issue all
 // its loads before its first store to shared memory.
 //
+// pair_tiles reads 16 bytes a thread: each thread loads its float4s of both
+// tiles straight into registers, all before its first store (the diagonal's
+// tile once). The copy stores them back as float4s, no thread staging
+// anything; the symmetrize writes them into the padded tiles and stores S
+// and S^T 4 bytes a thread, each warp a whole 128-byte line. One block a
+// pair, as the TPU probe's grid. On an H100 it times within run-to-run
+// spread of 4-byte loads through padded tiles, and the other designs
+// measured were slower (PERF.md): a persistent grid walking the worklist
+// through a cp.async ring with 4 x 4 register transposes, 1-D bulk copies,
+// and float4 copies on a persistent grid.
+//
 // Arithmetic: __fadd_rn / __fmul_rn (no contraction), so every output equals
 // the plain PyTorch version, (a + a.T) * 0.5, a.T or a, bit for bit. n must be
-// a multiple of the tile, as in the TPU probes.
+// a multiple of the tile, as in the TPU probes; pair_tiles takes a and out
+// 16-byte aligned.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,22 +80,70 @@ sym_two_read_kernel(const float* __restrict__ a, float* __restrict__ out, int n)
   });
 }
 
+// pair_tiles: a pair's 2 T^2 floats as float4s, PER a thread; float4 k of
+// a thread is row r < T of A[i,j] or row r - T of A[j,i], columns c .. c + 3
+// of the row. On the diagonal the second tile is the first.
+template <int T>
+struct PairSlots {
+  static constexpr int PER = 2 * T * T / 4 / (TX * TY), Q = T / 4;  // float4s a thread; a row
+  static_assert(T * T / 4 % (TX * TY) == 0, "a thread's float4s split evenly over the tiles");
+  int i, j, t;
+  __device__ __forceinline__ void at(int k, int& r, int& c) const {
+    const int idx = t + TX * TY * k;
+    r = idx / Q;
+    c = idx % Q * 4;
+  }
+  // the float4 of A (mirror: of the second tile) that slot k holds
+  __device__ __forceinline__ int64_t offset(int k, int n) const {
+    int r, c;
+    at(k, r, c);
+    return r < T ? (int64_t)(i * T + r) * n + j * T + c : (int64_t)(j * T + r - T) * n + i * T + c;
+  }
+};
+
 template <int T, bool DO_T, bool SKIP_DIAG>
 __global__ void __launch_bounds__(TX * TY)
 pair_tiles_kernel(const float* __restrict__ a, float* __restrict__ out,
                   const int* __restrict__ ii, const int* __restrict__ jj, int n) {
-  __shared__ float s0[T][T + 1], s1[T][T + 1];
-  const int i = ii[blockIdx.x], j = jj[blockIdx.x];
-  load<T, T>(s0, a, n, i * T, j * T);
-  load<T, T>(s1, a, n, j * T, i * T);
-  __syncthreads();
-  const bool second = !(SKIP_DIAG && i == j);
-  // out[i,j] = S, S[r][c] = (s0[r][c] + s1[c][r]) / 2; out[j,i] = S^T
-  for_tile<T, T>([&](int r, int c) {
-    out[(int64_t)(i * T + r) * n + j * T + c] = DO_T ? sym(s0[r][c], s1[c][r]) : s0[r][c];
-    if (second)
-      out[(int64_t)(j * T + r) * n + i * T + c] = DO_T ? sym(s0[c][r], s1[r][c]) : s1[r][c];
-  });
+  using P = PairSlots<T>;
+  const P pair{__ldg(ii + blockIdx.x), __ldg(jj + blockIdx.x),
+               (int)(threadIdx.y * TX + threadIdx.x)};
+  const bool diag = pair.i == pair.j;
+  float4 v[P::PER];
+#pragma unroll
+  for (int k = 0; k < P::PER; ++k)  // slots k >= PER / 2 hold the second tile
+    if (k < P::PER / 2 || !diag) v[k] = __ldg((const float4*)(a + pair.offset(k, n)));
+  if constexpr (!DO_T) {
+    // out = A: each float4 back where it came from; on the diagonal the
+    // second write (unless skipped) takes the first tile's float4
+#pragma unroll
+    for (int k = 0; k < P::PER; ++k) {
+      if (k < P::PER / 2 || !diag) *(float4*)(out + pair.offset(k, n)) = v[k];
+      else if (!SKIP_DIAG) *(float4*)(out + pair.offset(k, n)) = v[k - P::PER / 2];
+    }
+  } else {
+    __shared__ float s0[T][T + 1], s1[T][T + 1];
+#pragma unroll
+    for (int k = 0; k < P::PER; ++k) {
+      if (k >= P::PER / 2 && diag) continue;
+      int r, c;
+      pair.at(k, r, c);
+      float* d = r < T ? &s0[r][c] : &s1[r - T][c];
+      d[0] = v[k].x;
+      d[1] = v[k].y;
+      d[2] = v[k].z;
+      d[3] = v[k].w;
+    }
+    __syncthreads();
+    float(*m)[T + 1] = diag ? s0 : s1;  // the mirror tile A[j,i]
+    const int i = pair.i, j = pair.j;
+    const bool second = !(SKIP_DIAG && diag);
+    // out[i,j] = S, S[r][c] = (s0[r][c] + m[c][r]) / 2; out[j,i] = S^T
+    for_tile<T, T>([&](int r, int c) {
+      out[(int64_t)(i * T + r) * n + j * T + c] = sym(s0[r][c], m[c][r]);
+      if (second) out[(int64_t)(j * T + r) * n + i * T + c] = sym(s0[c][r], m[r][c]);
+    });
+  }
 }
 
 inline bool fits(int n, int tile) { return n > 0 && n % tile == 0 && n / tile <= 65535; }
@@ -108,7 +168,8 @@ template <int T>
 cudaError_t pair_launch(const void* a, void* out, const void* ii, const void* jj, int npairs,
                         int n, int do_t, int skip_diag, cudaStream_t s) {
   const int nb = n / T;
-  if (!fits(n, T) || npairs != nb * (nb + 1) / 2) return cudaErrorInvalidValue;
+  if (!fits(n, T) || npairs != nb * (nb + 1) / 2 || (((uintptr_t)a | (uintptr_t)out) & 15))
+    return cudaErrorInvalidValue;
   const float* x = (const float*)a;
   float* y = (float*)out;
   const int *pi = (const int*)ii, *pj = (const int*)jj;
@@ -144,7 +205,8 @@ extern "C" int strided_sym_two_read(const void* a, void* out, int n, int tile, v
   return (int)cudaErrorInvalidValue;
 }
 
-// Tiles 32 and 64; ii/jj: the int32 upper-triangle worklist on the device.
+// Tiles 32 and 64; ii/jj: the int32 upper-triangle worklist on the device;
+// a and out 16-byte aligned.
 extern "C" int strided_pair_tiles(const void* a, void* out, const void* ii, const void* jj,
                                   int npairs, int n, int tile, int do_transpose, int skip_diag,
                                   void* stream) {

@@ -155,6 +155,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(call, err):
         call()
 
 
+def _offset(t, nbytes):
+    """``t``'s values in a contiguous tensor whose base lies ``nbytes`` past
+    a 16-byte boundary."""
+    k = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype)
+    assert buf.data_ptr() % 16 == 0
+    return buf[k:k + t.numel()].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("nbytes", [4, 8, 12])
+@pytest.mark.parametrize("which", ["a", "out"])
+def test_pair_tiles_refuses_a_base_not_16_byte_aligned(which, nbytes):
+    x = torch.from_numpy(_input(64, 7))
+    a = _offset(x, nbytes) if which == "a" else x
+    out = _offset(torch.zeros(64, 64), nbytes) if which == "out" else torch.zeros(64, 64)
+    assert a.is_contiguous() and out.is_contiguous()
+    with pytest.raises(ValueError, match=f"{which} is not 16-byte aligned"):
+        es.pair_tiles(a, 32, out=out)
+    assert torch.equal(es.pair_tiles(x, 32, out=torch.zeros(64, 64)), es.sym_reference(x))
+
+
+def _source_pair_instances():
+    """``(tile, do_transpose, skip_diag)`` of every ``pair_tiles_kernel``
+    launch that ``csrc/exp_sym.cu``'s ``strided_pair_tiles`` reaches, each
+    checked against the condition of its branch."""
+    import re
+
+    src = (ROOT / "strided_tpu_torch" / "csrc" / "exp_sym.cu").read_text()
+    entry = src[src.index('extern "C" int strided_pair_tiles('):]
+    entry = entry[:entry.index("\n}\n")]
+    tiles = {int(t) for t in re.findall(r"tile == (\d+)\) return \(int\)pair_launch<\1>", entry)}
+    launch = src[src.index("cudaError_t pair_launch("):]
+    launch = launch[:launch.index("\n}\n")]
+    branches = re.findall(r"(if \((?:do_t && skip_diag|do_t|skip_diag)\)|else) "
+                          r"pair_tiles_kernel<T, (\w+), (\w+)><<<", launch)
+    conds = {"if (do_t && skip_diag)": (True, True), "if (do_t)": (True, False),
+             "if (skip_diag)": (False, True), "else": (False, False)}
+    flags = {"true": True, "false": False}
+    found = set()
+    for cond, do_t, skip in branches:
+        assert (flags[do_t], flags[skip]) == conds[cond], (cond, do_t, skip)
+        found |= {(t, flags[do_t], flags[skip]) for t in tiles}
+    assert len(branches) == 4, branches
+    return found
+
+
+def test_every_pair_tiles_variant_has_a_kernel_instance_in_the_source():
+    """Every (tile, do_transpose, skip_diag) the wrapper accepts has its
+    dispatch branch in ``csrc/exp_sym.cu``, each branch the instance its
+    condition names: no accepted call meets ``cudaErrorInvalidValue`` on the
+    card."""
+    accepted = {(t, d, k) for t in es.SQUARE_TILES for d in (False, True) for k in (False, True)}
+    assert _source_pair_instances() == accepted
+    for t, d, k in accepted:  # and the wrapper takes each of them (plain path here)
+        x = torch.from_numpy(_input(2 * t, 8))
+        assert torch.equal(es.pair_tiles(x, t, d, k), es.pair_reference(x, d))
+
+
+@pytest.mark.parametrize("row", [0, 37, 127])
+def test_run_check_fails_a_kernel_that_leaves_a_row_unwritten(row):
+    """``run``'s check writes into a NaN-filled output: a stand-in kernel
+    that computes every element but leaves one row of its ``out`` alone
+    fails it, and the same stand-in writing every row passes."""
+    x = torch.from_numpy(_input(128, 9))
+
+    def skips_a_row(a, out=None):
+        full = es.sym_reference(a)
+        keep = torch.ones(a.shape[0], dtype=torch.bool)
+        keep[row] = False
+        out[keep] = full[keep]
+        return out
+
+    assert not es.agrees(skips_a_row, es.sym_reference, x)
+    assert es.agrees(lambda a, out=None: es.sym_reference(a, out), es.sym_reference, x)
+
+
+@pytest.mark.parametrize("name", list(es.variants()))
+def test_every_variant_writes_its_result_into_out(name):
+    """Each variant of ``run`` takes ``out=`` and passes ``run``'s check
+    (its plain path, here)."""
+    fn, want = es.variants()[name]
+    x = torch.from_numpy(_input(256, 10))
+    assert es.agrees(fn, want, x), name
+
+
 def test_run_needs_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the refusal without one")
