@@ -101,7 +101,19 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     ``rev4_async``, the plane copy), written into a NaN-filled output made
     just before the call (here and in the scripts' own checks), exactly
     equal to its plain version; each timed against it in turns; the four
-    modules once more as ``python -m``.
+    modules once more as ``python -m``;
+13. the rest of the MPC stack (Riccati, rollouts, iLQR; no kernel of its
+    own) at the reference's sizes: the quadrotor's hover LQR gain at N=50 in
+    f32 within 1e-4 of the f64 CPU gain; 4096 double-pendulum rollouts of
+    100 steps, ``rollout_final`` equal to the last state of ``rollout`` bit
+    for bit, the first 64 within 1e-4 of the same rollouts in f64 on the
+    CPU, a captured call equal to the eager one, timed eagerly and as
+    device time, and profiled (kernels a call, their device time, the
+    device's busy share of the eager call); cartpole iLQR (T=40, 15
+    iterations) in f32 within 1e-3 of f64 on the CPU;
+    ``benchmarks/ilqr_bench.py`` (batch 256, horizon 50, 10 iterations): a
+    captured solve equal to the eager one bit for bit, every cost finite,
+    eager and device time and solves/s, and a solve profiled.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
 JSON object describing the twelve kernels (each with its time, its plain
@@ -276,6 +288,7 @@ def main() -> None:
     linalg_phase(dev, card)
     probes = probe_phases(dev, card)
     last = reduce_perm_phase(dev, card)
+    mpc_stack_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
@@ -1362,6 +1375,61 @@ def reduce_perm_phase(dev, card):
             *(entry(k, "exp_perm", REVERSAL_SOURCES[k],
                     mma_work if k == "rev4_mma" else bound(nbytes), lib_rev)
               for k in ("rev4_tiles", "rev4_mma", "rev4_async"))]
+
+
+RICCATI_LIMIT = 1e-4  # max |dK|, f32 on the card against f64 on the CPU, N=50
+ROLLOUT_LIMIT = 1e-4  # max |dx| over 100 steps of 0.01 s, 0.1 rad states
+ILQR_LIMIT = 1e-3  # max |du|, cartpole T=40, 15 iterations, inputs up to ~86
+
+
+def mpc_stack_phase(dev, card) -> None:
+    """Phase 13: Riccati, rollouts and iLQR (slice B, plain PyTorch, no
+    kernel of its own) on the card at the reference's sizes, each held to
+    the port's own f64 run on the CPU. Raises on any failed check."""
+    from strided_tpu_torch import bench
+    from strided_tpu_torch.benchmarks import ilqr_bench
+    from strided_tpu_torch.mpc import ilqr, rollout, rollout_final
+
+    dK, k_scale = bench.riccati_accuracy(dev)
+    print(f"[13 mpc stack] Riccati N=50: max |dK| f32 card vs f64 CPU {dK:.3e} "
+          f"(limit {RICCATI_LIMIT}), max |K| {k_scale:.4f} [{card}]")
+    if not dK <= RICCATI_LIMIT:
+        raise RuntimeError(f"Riccati gain off the f64 gain by {dK:.3e}")
+
+    model, x0, us = bench.rollout_problem(dev)
+    xs = rollout(model, x0, us, bench.ROLLOUT_DT)
+    xT = rollout_final(model, x0, us, bench.ROLLOUT_DT)
+    if tuple(xs.shape) != (4096, 101, 4) or not torch.isfinite(xs).all():
+        raise RuntimeError(f"rollouts: shape {tuple(xs.shape)} or non-finite states")
+    if not torch.equal(xT, xs[..., -1, :]):
+        raise RuntimeError("rollout_final differs from the last state of rollout")
+    cpu = lambda t: t[:64].double().cpu()
+    e = (cpu(xs) - rollout(model, cpu(x0), cpu(us), bench.ROLLOUT_DT)).abs().max().item()
+    print(f"[13 mpc stack] rollouts 4096 x 100: rollout_final == rollout[..., -1, :] bit for "
+          f"bit; first 64 vs f64 CPU max |dx| {e:.3e} (limit {ROLLOUT_LIMIT}) [{card}]")
+    if not e <= ROLLOUT_LIMIT:
+        raise RuntimeError(f"rollouts off the f64 run by {e:.3e}")
+    ms, _ = bench.rollout_times(dev)  # captured == eager, or it raises; prints its times
+    bench.print_profile("rollouts 4096 x 100", "call", ms, bench.device_profile(
+        lambda: rollout_final(model, x0, us, bench.ROLLOUT_DT), warmup=1))
+
+    du, u_scale, c32, c64 = bench.ilqr_accuracy(dev)
+    print(f"[13 mpc stack] iLQR cartpole T=40 x 15: max |du| f32 card vs f64 CPU {du:.3e} "
+          f"(limit {ILQR_LIMIT}), input scale {u_scale:.4f}, cost {c32:.6f} vs {c64:.6f} "
+          f"[{card}]")
+    if not du <= ILQR_LIMIT:
+        raise RuntimeError(f"iLQR inputs off the f64 run by {du:.3e}")
+
+    row = ilqr_bench.run(device=dev)  # captured == eager, costs finite, or it raises
+    print(f"[13 mpc stack] iLQR batch 256 x T=50 x 10: captured == eager bit for bit, costs "
+          f"finite; eager {row['latency_ms']:.4f} ms ({row['solves_per_s']:.6g} solves/s), "
+          f"device {row['device_latency_ms']:.4f} ms ({row['device_solves_per_s']:.6g} "
+          f"solves/s) [{card}]")
+    print(f"[13 mpc stack] ilqr_bench {json.dumps(row)}")
+    model, cost, x0s, us0 = ilqr_bench.problem(device=dev)
+    solve = lambda: ilqr(model, cost, x0s, us0, bench.CARTPOLE_DT, iters=10)
+    bench.print_profile("iLQR batch 256 x T=50 x 10", "solve", row["latency_ms"],
+                        bench.device_profile(solve, warmup=1))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,17 @@
-"""Benchmark pieces for the ported MPC step: accuracy gate and solves/s.
+"""Benchmark pieces for the ported MPC stack: accuracy lines and speed.
 
 Counterpart of ``bench.py``'s ``bench_mpc_accuracy`` and
-``bench_mpc_solves``. The accuracy gate runs anywhere; the timings need a
-CUDA device and refuse to run without one. Times come from CUDA events after
-a warm-up.
+``bench_mpc_solves`` (the quadrotor MPC step), and of ``bench_rollouts``,
+``bench_ilqr_accuracy`` and ``bench_riccati_accuracy`` (BASELINE configs 2
+and 3), at the same sizes and seeds. The accuracy functions run on the card
+unless given another device; their oracle is this package's own f64 run on
+the CPU (the reference's is JAX's f64 CPU run). The timings need a CUDA
+device and refuse to run without one. Times come from CUDA events after a
+warm-up, eagerly and as device time alone (the calls captured in a CUDA
+graph, first held bit for bit against an eager call).
 
-    python -m strided_tpu_torch.bench      # gate, solves/s, device profile
+    python -m strided_tpu_torch.bench      # gate, solves/s, device profile,
+                                           # Riccati and iLQR accuracy, rollouts
 """
 
 from __future__ import annotations
@@ -16,11 +22,17 @@ import numpy as np
 import torch
 
 from .entry import make_controller
+from .models import cartpole, double_pendulum, hover_input, hover_state, quadrotor
+from .mpc import QuadCost, ilqr, lqr_gains, rollout_final
 
 __all__ = ["mpc_accuracy", "mpc_solves", "step_device_ms", "profile_step", "cuda_ms",
-           "card_label"]
+           "graph_ms", "card_label", "device_profile", "print_profile",
+           "capture_matches_eager", "cartpole_cost", "rollout_problem", "rollout_times",
+           "ilqr_accuracy", "riccati_accuracy"]
 
 DT = 0.02
+ROLLOUT_DT = 0.01  # bench.py::bench_rollouts
+CARTPOLE_DT = 0.05  # bench.py::bench_ilqr_accuracy, benchmarks/ilqr_bench.py
 
 
 def card_label() -> str:
@@ -72,6 +84,30 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def capture_matches_eager(fn):
+    """Capture one call of ``fn()`` (whose inputs stay where they are) in a
+    CUDA graph, replay it, and hold each output tensor (``fn`` returns a
+    tensor or a tuple of them) bit for bit against an eager call's; raises
+    if one differs. Returns the eager outputs."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture requires
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    for i, (c, e) in enumerate(zip(as_tuple(captured), as_tuple(eager))):
+        if not torch.equal(c, e):
+            diff = (c - e).abs().max().item()
+            raise RuntimeError(f"captured output {i} differs from the eager call by {diff:.3e}")
+    return eager
 
 
 def mpc_accuracy(device="cuda", batch: int = 64, horizon: int = 50):
@@ -150,29 +186,51 @@ def step_device_ms(device="cuda", batch: int = 16384, horizon: int = 50,
         raise RuntimeError(f"step_device_ms times a CUDA device, got {device!r}")
     step, state = _stepper(device, batch, horizon)
     x = state[0].clone()
-    step()  # warm-up: caches, cuBLAS handles
-    state[0] = x.clone()
-    step()
-    eager = state[0].clone()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        state[0] = x.clone()
+
+    def one_step():  # the step from the state x, which stays put
+        state[0] = x
         step()
-    torch.cuda.current_stream().wait_stream(side)
-    static = x.clone()
-    state[0] = static
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        step()
-    captured = state[0]
-    graph.replay()
-    torch.cuda.synchronize()
-    if not torch.equal(captured, eager):
-        diff = (captured - eager).abs().max().item()
-        raise RuntimeError(f"captured step differs from the eager step by {diff:.3e}")
+        return state[0]
+
+    capture_matches_eager(one_step)
     state[0] = x.clone()
     return graph_ms(step, reps=reps)
+
+
+def device_profile(fn, calls: int = 1, warmup: int = 3):
+    """The device kernels of ``calls`` calls of ``fn()`` under
+    ``torch.profiler``, after ``warmup`` calls. Returns ``(device_ms,
+    kernels, rows)`` per call: the kernels' summed device time, their
+    count, and ``(ms, count, name)`` for each kernel name, by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(
+        ((e.self_device_time_total / 1e3 / calls, e.count / calls, e.key)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        reverse=True,
+    )
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), rows
+
+
+def print_profile(what: str, unit: str, wall_ms: float, profiled, top: int = 8) -> float:
+    """Print ``device_profile``'s result beside the call's (unprofiled)
+    wall time: kernels and device ms per ``unit``, the device's busy share
+    of the wall time, and the ``top`` kernels. Returns the busy share."""
+    dev_ms, kernels, rows = profiled
+    busy = dev_ms / wall_ms
+    print(f"profile {what}: {kernels:.0f} device ops/{unit}, {dev_ms:.4f} device ms/{unit} "
+          f"of {wall_ms:.4f} ms/{unit}, busy share {busy:.3f} [{card_label()}]")
+    for ms, n, name in rows[:top]:
+        print(f"  {ms:.4f} ms/{unit}  {n:7.1f}/{unit}  {name[:90]}")
+    return busy
 
 
 def profile_step(device="cuda", batch: int = 16384, horizon: int = 50,
@@ -182,32 +240,85 @@ def profile_step(device="cuda", batch: int = 16384, horizon: int = 50,
     milliseconds per step, the ``top`` kernels by device time, and the
     device's busy share of the (unprofiled, event-timed) step. Returns
     ``(device_ms_per_step, device_ops_per_step, busy_share)``."""
-    from torch.profiler import ProfilerActivity, profile
-
     ms_step, _ = mpc_solves(device, batch=batch, horizon=horizon)
     step, _state = _stepper(device, batch, horizon)
-    for _ in range(5):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    rows = sorted(
-        ((e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
-        reverse=True,
+    profiled = device_profile(step, calls=steps, warmup=5)
+    busy = print_profile(f"batch={batch} N={horizon}", "step", ms_step, profiled, top)
+    return profiled[0], profiled[1], busy
+
+
+def cartpole_cost(dtype=torch.float32, device="cuda") -> QuadCost:
+    """The swing-up cost of ``bench_ilqr_accuracy`` and ``ilqr_bench``."""
+    f = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    return QuadCost(
+        Q=torch.diag(f([1.0, 10.0, 0.1, 0.1])),
+        R=torch.eye(1, dtype=dtype, device=device) * 0.01,
+        Qf=torch.diag(f([10.0, 100.0, 1.0, 1.0])),
+        x_goal=f([0.0, np.pi, 0.0, 0.0]),
     )
-    dev_ms = sum(r[0] for r in rows)
-    ops = sum(r[1] for r in rows)
-    busy = dev_ms / ms_step
-    print(f"profile batch={batch} N={horizon}: {ops:.0f} device ops/step, "
-          f"{dev_ms:.4f} device ms/step of {ms_step:.4f} ms/step, "
-          f"busy share {busy:.3f} [{card_label()}]")
-    for ms, n, name in rows[:top]:
-        print(f"  {ms:.4f} ms/step  {n:5.1f}/step  {name[:90]}")
-    return dev_ms, ops, busy
+
+
+def rollout_problem(device="cuda", batch: int = 4096, T: int = 100, dtype=torch.float32):
+    """BASELINE config 2's rollouts (``bench_rollouts``): the double
+    pendulum, ``x0`` (batch, 4) at 0.1 rad and inputs (batch, T, 2) at 0.01
+    from ``default_rng(2)``. Returns ``(model, x0, us)``."""
+    rng = np.random.default_rng(2)
+    x0 = torch.as_tensor(rng.standard_normal((batch, 4)) * 0.1, dtype=dtype, device=device)
+    us = torch.as_tensor(rng.standard_normal((batch, T, 2)) * 0.01, dtype=dtype, device=device)
+    return double_pendulum(), x0, us
+
+
+def rollout_times(device="cuda", batch: int = 4096, T: int = 100, reps: int = 5):
+    """Time ``rollout_final`` on BASELINE config 2 on the card, eagerly
+    (``cuda_ms``) and as device time (``graph_ms``), after holding a
+    captured call bit for bit against an eager one. Returns ``(eager_ms,
+    device_ms)`` and prints both with dynamics steps/s and the card's name
+    and power limit."""
+    if torch.device(device).type != "cuda":
+        raise RuntimeError(f"rollout_times times a CUDA device, got {device!r}")
+    model, x0, us = rollout_problem(device, batch, T)
+    call = lambda: rollout_final(model, x0, us, ROLLOUT_DT)
+    capture_matches_eager(call)
+    ms = cuda_ms(call, reps=reps, warmup=2)
+    dev_ms = graph_ms(call, reps=reps, replays=3)
+    steps = batch * T
+    print(f"rollouts batch={batch} T={T}: eager {ms:.4f} ms ({steps / (ms * 1e-3):.6g} steps/s), "
+          f"device {dev_ms:.4f} ms ({steps / (dev_ms * 1e-3):.6g} steps/s) [{card_label()}]")
+    return ms, dev_ms
+
+
+def ilqr_accuracy(device="cuda", T: int = 40, iters: int = 15):
+    """Cartpole iLQR in f32 on ``device`` against the same solve in f64 on
+    the CPU (``bench_ilqr_accuracy``: x0 = 0, inputs at 0.05 from
+    ``default_rng(3)``). Returns ``(max |du|, max |u64|, cost32, cost64)``."""
+
+    def run(dtype, dev):
+        x0 = torch.zeros(4, dtype=dtype, device=dev)
+        us0 = torch.as_tensor(np.random.default_rng(3).standard_normal((T, 1)) * 0.05,
+                              dtype=dtype, device=dev)
+        res = ilqr(cartpole(), cartpole_cost(dtype, dev), x0, us0, CARTPOLE_DT, iters=iters)
+        return res.us.double().cpu().numpy(), float(res.cost)
+
+    us32, c32 = run(torch.float32, device)
+    us64, c64 = run(torch.float64, "cpu")
+    return float(np.max(np.abs(us32 - us64))), float(np.max(np.abs(us64))), c32, c64
+
+
+def riccati_accuracy(device="cuda", N: int = 50):
+    """The quadrotor's hover LQR gain K_0 over horizon ``N`` in f32 on
+    ``device`` against f64 on the CPU (``bench_riccati_accuracy``). Returns
+    ``(max |dK|, max |K64|)``."""
+
+    def run(dtype, dev):
+        A, B = quadrotor().linearize(hover_state(dtype, dev),
+                                     hover_input(dtype=dtype, device=dev), DT)
+        Q = torch.diag(torch.tensor([10, 10, 10, 1, 1, 1, 5, 5, 5, 1, 1, 1], dtype=dtype,
+                                    device=dev))
+        R = torch.eye(4, dtype=dtype, device=dev) * 0.1
+        return lqr_gains(A, B, Q, R, Q, N)[0][0].double().cpu().numpy()
+
+    K32, K64 = run(torch.float32, device), run(torch.float64, "cpu")
+    return float(np.max(np.abs(K32 - K64))), float(np.max(np.abs(K64)))
 
 
 if __name__ == "__main__":
@@ -216,3 +327,8 @@ if __name__ == "__main__":
     if not (first < 1e-4 and plan < 0.15):
         raise SystemExit("accuracy gate failed")
     profile_step("cuda")
+    dK, K = riccati_accuracy("cuda")
+    print(f"Riccati N=50: max |dK| {dK:.3e} (max |K| {K:.4f}), f32 card vs f64 CPU")
+    du, u, c32, c64 = ilqr_accuracy("cuda")
+    print(f"iLQR cartpole T=40: max |du| {du:.3e} (max |u| {u:.4f}), cost {c32:.6f} vs {c64:.6f}")
+    rollout_times("cuda")

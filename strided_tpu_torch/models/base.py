@@ -40,9 +40,10 @@ class Model:
         return rk4_step(self.dynamics, x, u, dt)
 
     def linearize(self, x, u, dt) -> Tuple[torch.Tensor, torch.Tensor]:
-        A = jacfwd(lambda xx: self.step(xx, u, dt))(x)
-        B = jacfwd(lambda uu: self.step(x, uu, dt))(u)
-        return A, B
+        # one forward-mode pass for both Jacobians: the n + m tangents ride
+        # one RK4 step (the reference differentiates twice; the values are
+        # the same, per tangent the same arithmetic)
+        return jacfwd(lambda xx, uu: self.step(xx, uu, dt), argnums=(0, 1))(x, u)
 
 
 def linearize(model: Model, xs, us, dt):

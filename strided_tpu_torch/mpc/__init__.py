@@ -1,3 +1,5 @@
+from .rollout import rollout, rollout_final  # noqa: F401
+from .ilqr import QuadCost, ilqr, ilqr_batched, ILQRResult  # noqa: F401
 from .qp import (  # noqa: F401
     CondensedQP,
     build_condensed,
@@ -5,3 +7,4 @@ from .qp import (  # noqa: F401
     qp_solve_unconstrained,
 )
 from .mpc import LinearMPC, make_hover_mpc, closed_loop  # noqa: F401
+from .riccati import lqr_gains, lqr_apply, riccati_converge  # noqa: F401

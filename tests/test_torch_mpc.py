@@ -245,6 +245,10 @@ def test_import_does_not_load_jax():
         "from strided_tpu_torch.core import lazy_expr, mapreduce, kernels_special\n"
         "from strided_tpu_torch.core import stream_reduce, executor_cuda\n"
         "import strided_tpu_torch.benchmarks.exp_admm\n"
+        "import strided_tpu_torch.mpc.riccati, strided_tpu_torch.mpc.rollout\n"
+        "import strided_tpu_torch.mpc.ilqr, strided_tpu_torch.models.pendulum\n"
+        "import strided_tpu_torch.models.cartpole, strided_tpu_torch.models.vehicles\n"
+        "import strided_tpu_torch.benchmarks.ilqr_bench\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
