@@ -113,7 +113,25 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     iterations) in f32 within 1e-3 of f64 on the CPU;
     ``benchmarks/ilqr_bench.py`` (batch 256, horizon 50, 10 iterations): a
     captured solve equal to the eager one bit for bit, every cost finite,
-    eager and device time and solves/s, and a solve profiled.
+    eager and device time and solves/s, and a solve profiled;
+14. slice C, the multi-GPU layer (``strided_tpu_torch.parallel``), at
+    BASELINE config 5's size (16384 scenarios, N=50, ADMM-20, f32): (a) one
+    process, a 1-rank NCCL mesh: the scenario-split step equal bit for bit
+    to ``ctrl.control`` + ``model.step`` on the same state and the
+    consensus to their mean, K1 launched once a call;
+    ``benchmarks/scenario_mpc.py``'s row (chained steps timed, 1 launch a
+    step); (b) two ranks (``slice_c_ranks``, this script's own rank entry
+    through ``parallel.multiproc.spawn``: NCCL with two cards or more, else
+    gloo asked for, printed), each running the dry-run surface
+    (``multiproc.dryrun_checks``) and then at full size (``slice_c_full``)
+    the step (each rank's rows within 1e-5 of the unsharded step's and 2e-4
+    of K1's plain version, the ADMM loop, K1 once a rank), the consensus
+    (within 1e-5 of the oracle's mean), ``sharded_batched_pair`` on (4,
+    4096, 4096) (K2 twice a rank, equal to ``pair_reference``) and
+    ``sharded_stream_sum`` on (16384, 8192) (K3 once a rank on its
+    2^26-element block, identity route, within 1e-6 rows max|a| of the f64
+    sum), with each rank's times.
+    Two ranks on one card share it: their times are no scaling number.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
 JSON object describing the twelve kernels (each with its time, its plain
@@ -289,6 +307,7 @@ def main() -> None:
     probes = probe_phases(dev, card)
     last = reduce_perm_phase(dev, card)
     mpc_stack_phase(dev, card)
+    slice_c_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
@@ -1382,6 +1401,201 @@ ROLLOUT_LIMIT = 1e-4  # max |dx| over 100 steps of 0.01 s, 0.1 rad states
 ILQR_LIMIT = 1e-3  # max |du|, cartpole T=40, 15 iterations, inputs up to ~86
 
 
+def slice_c_full(mesh, dev) -> dict:
+    """Phase 14(b) at BASELINE config 5's size on each rank: the
+    scenario-split step and the consensus at 16384 scenarios, N=50, ADMM-20
+    (K1 once a call, within 1e-5 of the unsharded step's rows and within
+    ``ATOL_KERNEL`` of its plain version, the ADMM loop, on the rows);
+    ``sharded_batched_pair`` on ``(2 ranks, 4096, 4096)`` (K2 once a
+    matrix, equal to ``pair_reference`` bit for bit) and
+    ``sharded_stream_sum`` on ``(ranks 8192, 8192)`` (K3 once a rank on a
+    2^26-element block, within 1e-6 rows max|a| of the f64 column sum);
+    with this rank's times. Raises on a failed check."""
+    from strided_tpu_torch import bench, config
+    from strided_tpu_torch.benchmarks import scenario_mpc
+    from strided_tpu_torch.core import kernels_special as ks
+    from strided_tpu_torch.core import stream_reduce as sr
+    from strided_tpu_torch.mpc import fused_admm as fa
+    from strided_tpu_torch.parallel import (axis_size, collective, gather,
+                                            scenario_consensus_control, shard,
+                                            sharded_batched_pair, sharded_mpc_step,
+                                            sharded_stream_sum)
+
+    err = lambda a, b: (a.double() - b.double()).abs().max().item()  # noqa: E731
+    n = axis_size(mesh)
+    out = {}
+    model, ctrl = scenario_mpc.controller(device=dev)
+    x = scenario_mpc.states(16384, dev)
+    step = sharded_mpc_step(ctrl, model, mesh, scenario_mpc.DT)
+    cons = scenario_consensus_control(ctrl, mesh)
+    u_all, _ = ctrl.control(x)
+    fa.LAUNCHES = 0
+    _xn, u = step(x)
+    out["k1_launches_step"] = fa.LAUNCHES
+    out["step_u_err"] = err(gather(u, mesh), u_all)
+    fa.LAUNCHES = 0
+    u_cons, _ = cons(x)
+    out["k1_launches_consensus"] = fa.LAUNCHES
+    out["consensus_err"] = err(u_cons, u_all.mean(0))
+    out["u0"] = u[0].tolist()
+    config.set_config(fused_admm=False)  # the same rows through K1's plain version
+    try:
+        u_plain, _ = ctrl.control(shard(x, mesh))
+    finally:
+        config.set_config(fused_admm=True)
+    out["k1_plain_err"] = err(u, u_plain)
+    if not (out["k1_launches_step"] == out["k1_launches_consensus"] == 1
+            and out["k1_plain_err"] <= ATOL_KERNEL and out["step_u_err"] <= 1e-5
+            and out["consensus_err"] <= 1e-5):
+        raise RuntimeError(f"slice C at full size: a check failed: {out}")
+    out["step_ms"] = bench.cuda_ms(lambda: step(x), reps=20, warmup=3)
+    out["consensus_ms"] = bench.cuda_ms(lambda: cons(x), reps=20, warmup=3)
+    buf = torch.zeros(4, device=dev)  # the consensus's all_reduce alone
+    out["all_reduce_ms"] = bench.cuda_ms(lambda: collective("all_reduce", buf, mesh),
+                                         reps=20, warmup=3)
+
+    gen = torch.Generator(device=dev).manual_seed(0)  # the same data on every rank
+    xp = torch.randn((2 * n, 4096, 4096), generator=gen, device=dev)
+    ks.LAUNCHES = 0
+    sym = sharded_batched_pair(xp, mesh, scale_mode="mul", scale=0.5)
+    out["k2_launches"] = ks.LAUNCHES
+    out["k2_exact"] = all(torch.equal(s, ks.pair_reference(b, scale_mode="mul", scale=0.5))
+                          for s, b in zip(sym, shard(xp, mesh)))
+    if not (out["k2_launches"] == 2 and out["k2_exact"]):
+        raise RuntimeError(f"K2: not 2 exact launches a rank: {out}")
+    del xp, sym
+
+    xs = torch.randn((n * 8192, 8192), generator=gen, device=dev)
+    paths = dict(sr.PATHS)
+    sr.LAUNCHES = 0
+    ks.LAST_REDUCE_DISPATCH = ""
+    total = sharded_stream_sum(xs, mesh)
+    out["k3_launches"] = sr.LAUNCHES
+    out["k3_routes"] = [k for k in sr.PATHS if sr.PATHS[k] != paths[k]]
+    out["k3_err"] = err(total, xs.sum(0, dtype=torch.float64))
+    out["k3_tol"] = 1e-6 * xs.shape[0] * xs.abs().max().item()
+    if not (out["k3_launches"] == 1 and ks.LAST_REDUCE_DISPATCH == "stream-kernel"
+            and all(r.startswith("identity/") for r in out["k3_routes"])
+            and out["k3_err"] <= out["k3_tol"]):
+        raise RuntimeError(f"K3 did not take the block, or is off the f64 sum: {out}")
+    return out
+
+
+def slice_c_rank(init_method, nproc, rank, backend, outdir) -> None:
+    """One rank of phase 14(b), started by :func:`slice_c_ranks` as
+    ``python3 chip_smoke.py --slice-c-rank <init_method> <nproc> <rank>
+    <backend|auto> <outdir>``: the multi-process dry run
+    (``parallel.multiproc.dryrun_checks``), then :func:`slice_c_full`;
+    writes both to ``outdir/rank<rank>.npz``."""
+    import torch.distributed as tdist
+
+    from strided_tpu_torch.parallel import dist as pdist
+    from strided_tpu_torch.parallel import make_mesh, multiproc
+
+    torch.set_num_threads(1)
+    if not pdist.init_distributed(init_method=init_method, world_size=int(nproc),
+                                  rank=int(rank), device="cuda",
+                                  backend=None if backend == "auto" else backend):
+        raise RuntimeError("init_distributed took the single-process no-op path")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        mesh = make_mesh(device="cuda")
+        res = multiproc.dryrun_checks(mesh, dev)
+        full = slice_c_full(mesh, dev)
+    finally:
+        tdist.destroy_process_group()
+    np.savez(f"{outdir}/rank{rank}.npz", backend=np.array(pdist.BACKEND), device=str(dev),
+             **res, **{"full_" + k: np.asarray(v) for k, v in full.items()})
+
+
+def slice_c_ranks(nproc: int, backend, card) -> None:
+    """Phase 14(b): ``nproc`` ranks of :func:`slice_c_rank` on the card
+    (NCCL, one card a rank, unless ``backend="gloo"``); prints each rank's
+    numbers. Raises when a rank fails."""
+    import os
+    import tempfile
+
+    from strided_tpu_torch._build import load_library
+    from strided_tpu_torch.parallel import multiproc
+
+    load_library()  # one nvcc build here, not one a rank
+    with tempfile.TemporaryDirectory() as outdir:
+        multiproc.spawn([os.path.abspath(__file__), "--slice-c-rank"], nproc,
+                        (backend or "auto", outdir), timeout=300)
+        ranks = [dict(np.load(f"{outdir}/rank{r}.npz")) for r in range(nproc)]
+    for r, res in enumerate(ranks):  # every check already passed in the rank
+        f = {k[len("full_"):]: v for k, v in res.items() if k.startswith("full_")}
+        print(f"[14 slice C] rank {r} of {nproc} ({res['backend']}, {res['device']}): dry run "
+              f"K1 {res['k1_step_f32']}+{res['k1_consensus_f32']}, K2 {res['k2_launches']}, "
+              f"K3 {res['stream_launches']} launches; full size: u rows vs unsharded "
+              f"{f['step_u_err']:.3e}, consensus {f['consensus_err']:.3e} (limit 1e-5), "
+              f"vs plain ADMM {f['k1_plain_err']:.3e} (limit {ATOL_KERNEL}), "
+              f"K1 {f['k1_launches_step']}+{f['k1_launches_consensus']}, K2 "
+              f"{f['k2_launches']} (== plain: {f['k2_exact']}), K3 {f['k3_launches']} "
+              f"{[str(r) for r in f['k3_routes']]} err {f['k3_err']:.3e} (tol {f['k3_tol']:.3e}); step "
+              f"{f['step_ms']:.4f} ms, consensus {f['consensus_ms']:.4f} ms, all_reduce "
+              f"of 4 floats {f['all_reduce_ms']:.4f} ms; u[0] "
+              f"{[round(float(v), 6) for v in f['u0']]} [{card}]")
+
+
+def slice_c_phase(dev, card) -> None:
+    """Phase 14: slice C, the multi-GPU layer, on one process (a 1-rank NCCL
+    mesh) and on two ranks (:func:`slice_c_ranks`). Raises on any failed
+    check or failing rank."""
+    import torch.distributed as tdist
+
+    from strided_tpu_torch import bench
+    from strided_tpu_torch.benchmarks import scenario_mpc
+    from strided_tpu_torch.mpc import fused_admm as fa
+    from strided_tpu_torch.parallel import (make_mesh, scenario_consensus_control,
+                                            sharded_mpc_step)
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(device="cuda")  # no process group yet: one NCCL rank
+    try:
+        backend = tdist.get_backend()
+        model, ctrl = scenario_mpc.controller(device=dev)
+        x = scenario_mpc.states(16384, dev)
+        step = sharded_mpc_step(ctrl, model, mesh, scenario_mpc.DT)
+        cons = scenario_consensus_control(ctrl, mesh)
+        fa.LAUNCHES = 0
+        xn, u = step(x)
+        torch.cuda.synchronize()
+        step_launches = fa.LAUNCHES
+        fa.LAUNCHES = 0
+        u_cons, _ = cons(x)
+        torch.cuda.synchronize()
+        cons_launches = fa.LAUNCHES
+        u_loc, _ = ctrl.control(x)
+        same = torch.equal(u, u_loc) and torch.equal(xn, model.step(x, u_loc, scenario_mpc.DT))
+        same_cons = torch.equal(u_cons, u_loc.mean(0))
+        print(f"[14 slice C] one rank ({backend}), 16384 scenarios, N=50, ADMM-20: step == "
+              f"ctrl.control + model.step bit for bit: {same}; consensus == their mean: "
+              f"{same_cons}; K1 launches: step {step_launches}, consensus {cons_launches}")
+        if backend != "nccl" or not (same and same_cons) or (step_launches, cons_launches) != (1, 1):
+            raise RuntimeError("slice C, one rank: a check failed (see the line above)")
+        fa.LAUNCHES = 0
+        row = scenario_mpc.run(device=dev)  # over the same 1-rank group
+        torch.cuda.synchronize()
+        print(f"[14 slice C] scenario_mpc {json.dumps(row)}")
+        calls = scenario_mpc.REPS + scenario_mpc.WARMUP + 1  # the chained steps, one consensus
+        if fa.LAUNCHES != calls or row["ranks"] != 1:
+            raise RuntimeError(f"scenario_mpc: {fa.LAUNCHES} K1 launches for {calls} calls")
+        dev_ms = bench.graph_ms(lambda: step(x), reps=10, replays=3)
+        cons_ms = bench.cuda_ms(lambda: cons(x), reps=10, warmup=2)
+        print(f"[14 slice C] one rank: step {dev_ms:.4f} ms device time (CUDA graph), "
+              f"consensus {cons_ms:.4f} ms eagerly [{card}]")
+        bench.print_profile("scenario step 16384 x N=50 x ADMM-20, one rank", "step",
+                            row["latency_ms"], bench.device_profile(lambda: step(x), calls=5))
+    finally:
+        tdist.destroy_process_group()
+    del x, xn, u, u_loc, step, cons, ctrl
+    torch.cuda.empty_cache()  # leave the card to the ranks
+
+    slice_c_ranks(2, None if torch.cuda.device_count() >= 2 else "gloo", card)
+    print(f"[14 slice C] {time.perf_counter() - t0:.1f} s")
+
+
 def mpc_stack_phase(dev, card) -> None:
     """Phase 13: Riccati, rollouts and iLQR (slice B, plain PyTorch, no
     kernel of its own) on the card at the reference's sizes, each held to
@@ -1433,4 +1647,9 @@ def mpc_stack_phase(dev, card) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--slice-c-rank"]:
+        slice_c_rank(*sys.argv[2:])
+    else:
+        main()

@@ -1,15 +1,18 @@
 """strided_tpu_torch: the PyTorch / CUDA port of strided_tpu.
 
-Three slices are ported. The scenario-batched quadrotor MPC step: the
+Four slices are ported. The scenario-batched quadrotor MPC step: the
 models, the condensed-QP solver with its fused-ADMM CUDA kernel, and the
 closed-loop controller. The rest of the MPC stack, in plain PyTorch: the
 pendulum, cartpole and vehicle models, batched rollouts, the Riccati
-recursion and batched iLQR (``models``, ``mpc``). And the whole strided
+recursion and batched iLQR (``models``, ``mpc``). The whole strided
 engine: lazy strided views, lazy expressions, the fused
 map/broadcast/reduce engine with its tile-pair (K2), stream-reduction (K3)
 and tile-executor (K4) CUDA kernels, and the linalg layer (``mul``, ``@``,
-``axpby``, ``contract``). The TPU round's probe scripts for the
-transpose-pair family are in ``benchmarks/``.
+``axpby``, ``contract``). And the multi-GPU layer over
+``torch.distributed`` (``parallel``: meshes of ranks, the scenario-split
+MPC step and its consensus all-reduce, split matmuls, K2 and K3 per rank),
+with checkpoints and profiling in ``utils``; as in the reference, neither
+is imported here. The TPU round's probe scripts are in ``benchmarks/``.
 """
 
 from . import config  # noqa: F401

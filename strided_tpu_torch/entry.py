@@ -1,8 +1,10 @@
-"""Entry point: one closed-loop step of the scenario-batched quadrotor MPC.
+"""Entry points: one closed-loop step of the scenario-batched quadrotor MPC,
+and the multi-GPU dry run.
 
-Counterpart of ``__graft_entry__.py``'s ``_make_controller`` and ``entry``:
-the same controller (Q, R, input bounds, ADMM-6 at rho=8) and the same step
-(condensed-QP ADMM solve -> first input -> RK4 plant step).
+Counterpart of ``__graft_entry__.py``'s ``_make_controller``, ``entry`` and
+``dryrun_multichip``: the same controller (Q, R, input bounds, ADMM-6 at
+rho=8), the same step (condensed-QP ADMM solve -> first input -> RK4 plant
+step), and the multi-chip surface run by ``n`` processes, one rank each.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 from .models import hover_input, hover_state, quadrotor
 from .mpc import make_hover_mpc
 
-__all__ = ["make_controller", "entry"]
+__all__ = ["make_controller", "entry", "dryrun_multichip"]
 
 
 def make_controller(horizon: int, dt: float, device, dtype=torch.float32):
@@ -52,3 +54,15 @@ def entry(device="cuda"):
     x = torch.as_tensor(rng.uniform(-0.3, 0.3, (256, 12)), dtype=torch.float32,
                         device=device)
     return mpc_step, (x,)
+
+
+def dryrun_multichip(n_devices: int, device="cuda", backend=None, timeout: float = 300):
+    """The multi-chip surface over ``n_devices`` ranks, one process each
+    (``parallel.multiproc.run_multiprocess_check``): the sharded step and
+    the consensus all-reduce, the mesh-split engine ops with K2 and K3 per
+    rank, the k-split matmul, and with 4 ranks or more a ``('data',
+    'model')`` mesh. Returns the workers' outputs; raises if one fails."""
+    from .parallel.multiproc import run_multiprocess_check
+
+    return run_multiprocess_check(nproc=n_devices, device=device, backend=backend,
+                                  timeout=timeout)

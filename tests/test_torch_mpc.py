@@ -236,6 +236,9 @@ def test_matmul_precision_scope_pins_and_restores():
 
 
 def test_import_does_not_load_jax():
+    """Nor the JAX package. A multi-process worker checks its own
+    ``sys.modules`` the same way before it prints ``MULTIPROC_OK``
+    (``tests/test_torch_multiproc.py``)."""
     code = (
         "import sys\n"
         "import strided_tpu_torch, strided_tpu_torch.entry, strided_tpu_torch.bench\n"
@@ -249,7 +252,10 @@ def test_import_does_not_load_jax():
         "import strided_tpu_torch.mpc.ilqr, strided_tpu_torch.models.pendulum\n"
         "import strided_tpu_torch.models.cartpole, strided_tpu_torch.models.vehicles\n"
         "import strided_tpu_torch.benchmarks.ilqr_bench\n"
+        "import strided_tpu_torch.parallel, strided_tpu_torch.parallel.multiproc\n"
+        "import strided_tpu_torch.utils, strided_tpu_torch.benchmarks.scenario_mpc\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert not any(m.startswith('strided_tpu.') or m == 'strided_tpu' for m in sys.modules)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
