@@ -13,6 +13,10 @@ and tile-executor (K4) CUDA kernels, and the linalg layer (``mul``, ``@``,
 MPC step and its consensus all-reduce, split matmuls, K2 and K3 per rank),
 with checkpoints and profiling in ``utils``; as in the reference, neither
 is imported here. The TPU round's probe scripts are in ``benchmarks/``.
+``capture`` is the counterpart of ``jax.jit``: on the card
+``closed_loop``, the rollouts, ``ilqr`` and ``entry()``'s step each run as
+one CUDA-graph replay (``from strided_tpu_torch.capture import capture,
+disable_capture``).
 """
 
 from . import config  # noqa: F401

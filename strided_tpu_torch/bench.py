@@ -7,8 +7,11 @@ and 3), at the same sizes and seeds. The accuracy functions run on the card
 unless given another device; their oracle is this package's own f64 run on
 the CPU (the reference's is JAX's f64 CPU run). The timings need a CUDA
 device and refuse to run without one. Times come from CUDA events after a
-warm-up, eagerly and as device time alone (the calls captured in a CUDA
-graph, first held bit for bit against an eager call).
+warm-up: eagerly (inside ``disable_capture()``), through the captured entry
+points (``capture.py``: one CUDA-graph replay a call, first held bit for
+bit against the eager call), with the first call's time (warm-up, capture,
+instantiation), and as device time alone (``graph_ms``: many calls in one
+graph).
 
     python -m strided_tpu_torch.bench      # gate, solves/s, device profile,
                                            # Riccati and iLQR accuracy, rollouts
@@ -17,17 +20,20 @@ graph, first held bit for bit against an eager call).
 from __future__ import annotations
 
 import subprocess
+import time
 
 import numpy as np
 import torch
 
-from .entry import make_controller
+from . import capture as _capture
+from .capture import capture, disable_capture
+from .entry import make_controller, make_step
 from .models import cartpole, double_pendulum, hover_input, hover_state, quadrotor
 from .mpc import QuadCost, ilqr, lqr_gains, rollout_final
 
 __all__ = ["mpc_accuracy", "mpc_solves", "step_device_ms", "profile_step", "cuda_ms",
            "graph_ms", "card_label", "device_profile", "print_profile",
-           "capture_matches_eager", "cartpole_cost", "rollout_problem", "rollout_times",
+           "matches_eager", "cartpole_cost", "rollout_problem", "rollout_times",
            "ilqr_accuracy", "riccati_accuracy"]
 
 DT = 0.02
@@ -63,17 +69,20 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     """Mean device milliseconds per call of ``fn()``: ``reps`` calls captured
     in one CUDA graph, replayed ``replays`` times between CUDA events. No
     host work lies between the kernels, so this is the device's time alone
-    (``cuda_ms`` also holds the host's, where the host is the slower)."""
+    (``cuda_ms`` also holds the host's, where the host is the slower). The
+    captured entry points inside ``fn`` run as they are, recorded into this
+    graph: it holds no input copy and no output clone."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up on a side stream, as capture requires
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+    with disable_capture():
+        with torch.cuda.stream(side):  # warm-up on a side stream, as capture requires
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -86,28 +95,30 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def capture_matches_eager(fn):
-    """Capture one call of ``fn()`` (whose inputs stay where they are) in a
-    CUDA graph, replay it, and hold each output tensor (``fn`` returns a
-    tensor or a tuple of them) bit for bit against an eager call's; raises
-    if one differs. Returns the eager outputs."""
-    eager = fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up on a side stream, as capture requires
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = fn()
-    graph.replay()
+def matches_eager(fn):
+    """Call ``fn()`` (whose inputs stay where they are) through its captured
+    entry points, then inside ``disable_capture()``, and hold each output
+    tensor (``fn`` returns a tensor or a tuple of them) of the one bit for
+    bit against the other's; raises if one differs. The captured call comes
+    first, so on a new signature it is the entry point's first call.
+    Returns ``(outputs, first_ms, capture_ms)``: the captured outputs, the
+    host milliseconds of that call to the end of its device work (warm-up,
+    capture, instantiation and one replay) and of its capture and
+    instantiation alone (``capture.LAST_CAPTURE_MS``)."""
     torch.cuda.synchronize()
-    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    t0 = time.perf_counter()
+    captured = fn()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    capture_ms = _capture.LAST_CAPTURE_MS
+    with disable_capture():
+        eager = fn()
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
     for i, (c, e) in enumerate(zip(as_tuple(captured), as_tuple(eager))):
         if not torch.equal(c, e):
             diff = (c - e).abs().max().item()
             raise RuntimeError(f"captured output {i} differs from the eager call by {diff:.3e}")
-    return eager
+    return captured, first_ms, capture_ms
 
 
 def mpc_accuracy(device="cuda", batch: int = 64, horizon: int = 50):
@@ -115,11 +126,12 @@ def mpc_accuracy(device="cuda", batch: int = 64, horizon: int = 50):
     the same over-relaxed ADMM run to convergence in f64 numpy on the same
     QP data. Returns ``(dev_first, dev_plan, u_scale)``: worst deviation of
     the first applied input, of the whole horizon plan, and the oracle's
-    input magnitude for scale. The gate is first < 1e-4, plan < 0.15."""
+    input magnitude for scale. The gate is first < 1e-4, plan < 0.15. The
+    plan runs captured (one CUDA-graph replay) on the card."""
     _model, ctrl = make_controller(horizon=horizon, dt=DT, device=device)
     x = np.random.default_rng(0).uniform(-0.3, 0.3, (batch, 12))
     xt = torch.as_tensor(x, dtype=torch.float32, device=device)
-    U = ctrl.plan(xt).double().cpu().numpy()  # (batch, N, m)
+    U = capture(ctrl.plan)(xt).double().cpu().numpy()  # (batch, N, m)
 
     f64 = lambda t: t.double().cpu().numpy()
     qp = ctrl.qp
@@ -144,56 +156,65 @@ def mpc_accuracy(device="cuda", batch: int = 64, horizon: int = 50):
 
 
 def _stepper(device, batch: int, horizon: int):
-    """A closed-loop step on ``batch`` scenarios that advances its own state:
-    returns ``(step, state)``, where ``step()`` replaces ``state[0]``."""
+    """The captured closed-loop step on ``batch`` scenarios
+    (``entry.make_step``) and a call that advances its own state: returns
+    ``(mpc_step, step, state)``, where ``step()`` replaces ``state[0]`` by
+    ``mpc_step(state[0])``."""
     model, ctrl = make_controller(horizon=horizon, dt=DT, device=device)
+    mpc_step = make_step(model, ctrl, DT)
     x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (batch, 12)),
                          dtype=torch.float32, device=device)
     state = [x0]
 
     def step():
-        x = state[0]
-        state[0] = model.step(x, ctrl.control(x)[0], DT)
+        state[0] = mpc_step(state[0])
 
-    return step, state
+    return mpc_step, step, state
 
 
 def mpc_solves(device="cuda", batch: int = 16384, horizon: int = 50,
-               reps: int = 50):
+               reps: int = 50) -> dict:
     """Time the closed-loop MPC step (solve + RK4) at ``batch`` scenarios on
-    the card. Returns ``(ms_per_step, solves_per_s)`` and prints both with
-    the card's name and power limit."""
+    the card, captured (``entry.make_step``: one replay a step, its input
+    copied in and its output cloned) and eagerly (``disable_capture()``),
+    after the captured step's first call (warm-up, capture, instantiation).
+    Returns ``captured_ms``, ``captured_solves_per_s``, ``eager_ms``,
+    ``eager_solves_per_s`` and ``first_call_ms`` and prints them with the
+    card's name and power limit."""
     if torch.device(device).type != "cuda":
         raise RuntimeError(f"mpc_solves times a CUDA device, got {device!r}")
-    step, state = _stepper(device, batch, horizon)
-    ms = cuda_ms(step, reps=reps)
+    _mpc_step, step, state = _stepper(device, batch, horizon)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    row = {"first_call_ms": (time.perf_counter() - t0) * 1e3,
+           "captured_ms": cuda_ms(step, reps=reps)}
+    with disable_capture():
+        row["eager_ms"] = cuda_ms(step, reps=reps)
     if not torch.isfinite(state[0]).all():
         raise RuntimeError("mpc_solves: closed loop produced non-finite states")
-    solves = batch / (ms * 1e-3)
-    print(f"mpc step batch={batch} N={horizon}: {ms:.4f} ms/step, "
-          f"{solves:.0f} solves/s [{card_label()}]")
-    return ms, solves
+    for k in ("captured", "eager"):
+        row[f"{k}_solves_per_s"] = batch / (row[f"{k}_ms"] * 1e-3)
+    print(f"mpc step batch={batch} N={horizon}: captured {row['captured_ms']:.4f} ms/step "
+          f"({row['captured_solves_per_s']:.0f} solves/s), eager {row['eager_ms']:.4f} ms/step "
+          f"({row['eager_solves_per_s']:.0f} solves/s), first call {row['first_call_ms']:.1f} ms "
+          f"[{card_label()}]")
+    return row
 
 
 def step_device_ms(device="cuda", batch: int = 16384, horizon: int = 50,
                    reps: int = 20) -> float:
     """Device milliseconds of the closed-loop step: ``reps`` chained steps
     captured in one CUDA graph and replayed (``graph_ms``), so no host
-    dispatch lies between its kernels. First one captured step is replayed
-    on a state and held against the eager step on the same state: they must
-    agree bit for bit, else this raises. The entry points stay eager."""
+    dispatch lies between its kernels. First the captured step and the
+    eager step are held bit for bit against each other on one state
+    (``matches_eager``), else this raises."""
     if torch.device(device).type != "cuda":
         raise RuntimeError(f"step_device_ms times a CUDA device, got {device!r}")
-    step, state = _stepper(device, batch, horizon)
+    mpc_step, step, state = _stepper(device, batch, horizon)
     x = state[0].clone()
-
-    def one_step():  # the step from the state x, which stays put
-        state[0] = x
-        step()
-        return state[0]
-
-    capture_matches_eager(one_step)
-    state[0] = x.clone()
+    matches_eager(lambda: mpc_step(x))
     return graph_ms(step, reps=reps)
 
 
@@ -238,12 +259,17 @@ def profile_step(device="cuda", batch: int = 16384, horizon: int = 50,
     """Where the step's device time goes: ``torch.profiler`` over ``steps``
     closed-loop steps after a warm-up. Prints device ops and device
     milliseconds per step, the ``top`` kernels by device time, and the
-    device's busy share of the (unprofiled, event-timed) step. Returns
-    ``(device_ms_per_step, device_ops_per_step, busy_share)``."""
-    ms_step, _ = mpc_solves(device, batch=batch, horizon=horizon)
-    step, _state = _stepper(device, batch, horizon)
-    profiled = device_profile(step, calls=steps, warmup=5)
-    busy = print_profile(f"batch={batch} N={horizon}", "step", ms_step, profiled, top)
+    device's busy share of the (unprofiled, event-timed) step, eagerly and
+    captured. Returns ``(device_ms_per_step, device_ops_per_step,
+    busy_share)`` of the eager step."""
+    row = mpc_solves(device, batch=batch, horizon=horizon)
+    _mpc_step, step, _state = _stepper(device, batch, horizon)
+    with disable_capture():
+        profiled = device_profile(step, calls=steps, warmup=5)
+    busy = print_profile(f"batch={batch} N={horizon}, eager", "step", row["eager_ms"],
+                         profiled, top)
+    print_profile(f"batch={batch} N={horizon}, captured", "step", row["captured_ms"],
+                  device_profile(step, calls=steps, warmup=5), top)
     return profiled[0], profiled[1], busy
 
 
@@ -268,23 +294,28 @@ def rollout_problem(device="cuda", batch: int = 4096, T: int = 100, dtype=torch.
     return double_pendulum(), x0, us
 
 
-def rollout_times(device="cuda", batch: int = 4096, T: int = 100, reps: int = 5):
-    """Time ``rollout_final`` on BASELINE config 2 on the card, eagerly
-    (``cuda_ms``) and as device time (``graph_ms``), after holding a
-    captured call bit for bit against an eager one. Returns ``(eager_ms,
-    device_ms)`` and prints both with dynamics steps/s and the card's name
-    and power limit."""
+def rollout_times(device="cuda", batch: int = 4096, T: int = 100, reps: int = 5) -> dict:
+    """Time ``rollout_final`` on BASELINE config 2 on the card: its first
+    captured call (held bit for bit against an eager one,
+    ``matches_eager``), then captured and eagerly (``cuda_ms``) and as
+    device time (``graph_ms``). Returns ``first_call_ms``, ``capture_ms``,
+    ``captured_ms``, ``eager_ms`` and ``device_ms`` and prints them with
+    dynamics steps/s and the card's name and power limit."""
     if torch.device(device).type != "cuda":
         raise RuntimeError(f"rollout_times times a CUDA device, got {device!r}")
     model, x0, us = rollout_problem(device, batch, T)
-    call = lambda: rollout_final(model, x0, us, ROLLOUT_DT)
-    capture_matches_eager(call)
-    ms = cuda_ms(call, reps=reps, warmup=2)
-    dev_ms = graph_ms(call, reps=reps, replays=3)
-    steps = batch * T
-    print(f"rollouts batch={batch} T={T}: eager {ms:.4f} ms ({steps / (ms * 1e-3):.6g} steps/s), "
-          f"device {dev_ms:.4f} ms ({steps / (dev_ms * 1e-3):.6g} steps/s) [{card_label()}]")
-    return ms, dev_ms
+    call = lambda: rollout_final(model, x0, us, ROLLOUT_DT)  # noqa: E731
+    _, first_ms, capture_ms = matches_eager(call)
+    row = {"first_call_ms": first_ms, "capture_ms": capture_ms,
+           "captured_ms": cuda_ms(call, reps=reps, warmup=2)}
+    with disable_capture():
+        row["eager_ms"] = cuda_ms(call, reps=reps, warmup=2)
+    row["device_ms"] = graph_ms(call, reps=reps, replays=3)
+    rate = lambda k: f"{row[k]:.4f} ms ({batch * T / (row[k] * 1e-3):.6g} steps/s)"  # noqa: E731
+    print(f"rollouts batch={batch} T={T}: captured {rate('captured_ms')}, eager "
+          f"{rate('eager_ms')}, device {rate('device_ms')}; first call {first_ms:.1f} ms "
+          f"(capture and instantiation {capture_ms:.1f}) [{card_label()}]")
+    return row
 
 
 def ilqr_accuracy(device="cuda", T: int = 40, iters: int = 15):
@@ -323,7 +354,7 @@ def riccati_accuracy(device="cuda", N: int = 50):
 
 if __name__ == "__main__":
     first, plan, _ = mpc_accuracy("cuda")
-    print(f"accuracy gate: first {first:.3e} (< 1e-4), plan {plan:.3e} (< 0.15)")
+    print(f"accuracy gate (captured plan): first {first:.3e} (< 1e-4), plan {plan:.3e} (< 0.15)")
     if not (first < 1e-4 and plan < 0.15):
         raise SystemExit("accuracy gate failed")
     profile_step("cuda")

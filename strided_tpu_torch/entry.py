@@ -5,6 +5,8 @@ Counterpart of ``__graft_entry__.py``'s ``_make_controller``, ``entry`` and
 ``dryrun_multichip``: the same controller (Q, R, input bounds, ADMM-6 at
 rho=8), the same step (condensed-QP ADMM solve -> first input -> RK4 plant
 step), and the multi-chip surface run by ``n`` processes, one rank each.
+The reference returns the step for its caller to jit; here nothing else
+would compile it, so ``entry`` returns it captured (``capture.py``).
 """
 
 from __future__ import annotations
@@ -12,10 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .capture import capture
 from .models import hover_input, hover_state, quadrotor
 from .mpc import make_hover_mpc
 
-__all__ = ["make_controller", "entry", "dryrun_multichip"]
+__all__ = ["make_controller", "make_step", "entry", "dryrun_multichip"]
 
 
 def make_controller(horizon: int, dt: float, device, dtype=torch.float32):
@@ -41,15 +44,23 @@ def make_controller(horizon: int, dt: float, device, dtype=torch.float32):
     return model, ctrl
 
 
-def entry(device="cuda"):
-    """(fn, example_args): the scenario-batched MPC step at horizon 50."""
-    dt = 0.02
-    model, ctrl = make_controller(horizon=50, dt=dt, device=device)
+def make_step(model, ctrl, dt):
+    """The closed-loop step ``x -> x_next`` (solve, first input, RK4),
+    captured: one CUDA-graph replay a call on the card."""
 
     def mpc_step(x):
         u, _plan = ctrl.control(x)
         return model.step(x, u, dt)
 
+    return capture(mpc_step)
+
+
+def entry(device="cuda"):
+    """(fn, example_args): the scenario-batched MPC step at horizon 50,
+    captured (``make_step``)."""
+    dt = 0.02
+    model, ctrl = make_controller(horizon=50, dt=dt, device=device)
+    mpc_step = make_step(model, ctrl, dt)
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.uniform(-0.3, 0.3, (256, 12)), dtype=torch.float32,
                         device=device)

@@ -16,8 +16,10 @@ and each batch element keeps its own state as under the reference's
 ``jax.vmap`` (its cost, its acceptance, its Levenberg ``mu``). Fixed
 iteration count and static shapes; nothing reads a value back from the card
 (``inv_ex`` without its check, choices by ``torch.where`` and
-``take_along_dim``), so a call can be captured in a CUDA graph. A singular
-``Quu`` gives non-finite gains, whose candidates the line search rejects.
+``take_along_dim``), and on the card the whole solve runs as one captured
+CUDA graph (``capture.py``), as the reference's scans run as one program. A
+singular ``Quu`` gives non-finite gains, whose candidates the line search
+rejects.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..capture import capture
 from ..config import matmul_precision_scope
 from ..models.base import Model, linearize
 from .rollout import rollout
@@ -113,6 +116,7 @@ def _forward(model, x0, xs, us, ks, Ks, alpha, dt, cost: QuadCost):
     return xs_new, us_new, cost.total(xs_new, us_new)
 
 
+@capture
 @matmul_precision_scope
 def ilqr(
     model: Model,
@@ -158,5 +162,5 @@ def ilqr(
 
 def ilqr_batched(model, cost, x0s, us_init, dt, **kw) -> ILQRResult:
     """A batch of initial states (the scenario batch): ``ilqr`` itself, which
-    treats every leading dimension as a batch."""
+    treats every leading dimension as a batch (and is captured)."""
     return ilqr(model, cost, x0s, us_init, dt, **kw)

@@ -3,7 +3,10 @@
 Counterpart of ``strided_tpu/mpc/mpc.py``. The controller linearizes the
 model at hover once and builds the condensed QP once; each control step
 solves the box-constrained QP for the current state deviation, batched over
-scenarios.
+scenarios. ``closed_loop`` runs on the card as one captured program, the
+whole horizon in one CUDA graph (``capture.py``), as the reference's is one
+``lax.scan``; ``LinearMPC.control`` and ``plan`` stay eager for one-off
+batches (a caller captures them with ``capture(ctrl.plan)``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import dataclasses
 
 import torch
 
+from ..capture import capture
 from ..config import matmul_precision_scope
 from ..models.base import Model
 from .qp import CondensedQP, build_condensed, qp_solve, qp_solve_unconstrained
@@ -79,6 +83,7 @@ def make_hover_mpc(
     )
 
 
+@capture
 @matmul_precision_scope
 def closed_loop(ctrl: LinearMPC, model: Model, x0, steps: int, dt: float):
     """Simulate the nonlinear plant under the MPC law for ``steps`` steps.

@@ -6,7 +6,8 @@ from ``t = N-1`` down to 0, then reversed into time order. It is an oracle
 for the condensed QP independent of it (the same optimal control by another
 factorization). Products run in IEEE FP32 (``matmul_precision_scope``), and
 the solves use ``solve_ex`` without its host-side check, so nothing here
-reads a value back from the card.
+reads a value back from the card. It stays eager: it runs once per
+controller build, where a capture would cost more than it saves.
 """
 
 from __future__ import annotations

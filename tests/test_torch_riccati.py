@@ -19,6 +19,7 @@ import strided_tpu_torch.models as tm  # noqa: E402
 import strided_tpu_torch.mpc as tmpc  # noqa: E402
 from strided_tpu_torch import bench as tbench  # noqa: E402
 from strided_tpu_torch import config as tconfig  # noqa: E402
+from strided_tpu_torch.capture import capture  # noqa: E402
 
 Q_DIAG = [10, 10, 10, 1, 1, 1, 5, 5, 5, 1, 1, 1]
 DTYPES = {"f64": (torch.float64, jnp.float64), "f32": (torch.float32, jnp.float32)}
@@ -127,9 +128,11 @@ def test_riccati_and_ilqr_run_under_the_precision_scope():
     (``riccati.py:23,48``, ``ilqr.py:116``): each is wrapped by
     ``config.matmul_precision_scope``, which
     ``test_torch_mpc.py::test_matmul_precision_scope_pins_and_restores``
-    checks."""
+    checks. ``ilqr`` is captured (``capture.capture``) around its scoped
+    body."""
     scope = tconfig.matmul_precision_scope(lambda: None).__code__
-    for fn in (tmpc.lqr_gains, tmpc.lqr_apply, tmpc.ilqr):
+    assert tmpc.ilqr.__code__ is capture(lambda: None).__code__
+    for fn in (tmpc.lqr_gains, tmpc.lqr_apply, tmpc.ilqr.__wrapped__):
         assert fn.__code__ is scope and callable(fn.__wrapped__)
 
 
