@@ -129,22 +129,33 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     profiled captured (the eager solve's 90k host launches under the
     profiler would be most of the phase's time);
 14. slice C, the multi-GPU layer (``strided_tpu_torch.parallel``), at
-    BASELINE config 5's size (16384 scenarios, N=50, ADMM-20, f32): (a) one
-    process, a 1-rank NCCL mesh: the scenario-split step equal bit for bit
-    to ``ctrl.control`` + ``model.step`` on the same state and the
-    consensus to their mean, K1 launched once a call;
-    ``benchmarks/scenario_mpc.py``'s row (chained steps timed, 1 launch a
-    step); (b) two ranks (``slice_c_ranks``, this script's own rank entry
-    through ``parallel.multiproc.spawn``: NCCL with two cards or more, else
-    gloo asked for, printed), each running the dry-run surface
+    BASELINE config 5's size (16384 scenarios, N=50, ADMM-20, f32), the
+    step and the consensus captured on NCCL (one CUDA-graph replay a call a
+    rank, K1 and the ``all_reduce`` inside it): (a) one process, a 1-rank
+    NCCL mesh: counted eagerly (inside ``disable_capture()``), the step
+    equal bit for bit to ``ctrl.control`` + ``model.step`` on the same state
+    and the consensus to their mean, K1 launched once a call; then captured
+    and held bit for bit against the eager calls (``bench.matches_eager``,
+    two captures, K1 launched once by each warm-up and once by each
+    capture), each profiled over replays with ``fused_admm_kernel`` found
+    in them; ``sharded_rollout`` replaying the captured ``rollout``
+    (one capture, two replays, equal to eager); ``benchmarks/scenario_mpc.py``'s
+    row (the chained step captured, with its eager, device and first-call
+    times) and its chained step profiled captured and eagerly; (b) two ranks
+    (``slice_c_ranks``, this script's own rank entry through
+    ``parallel.multiproc.spawn``: NCCL with two cards or more, else gloo
+    asked for, whose calls run eagerly and whose captured calls must be
+    refused, printed as "eager (gloo)"), each running the dry-run surface
     (``multiproc.dryrun_checks``) and then at full size (``slice_c_full``)
     the step (each rank's rows within 1e-5 of the unsharded step's and 2e-4
-    of K1's plain version, the ADMM loop, K1 once a rank), the consensus
-    (within 1e-5 of the oracle's mean), ``sharded_batched_pair`` on (4,
+    of K1's plain version, the ADMM loop, K1 once a rank eagerly; over NCCL
+    the captured step and consensus equal to the eager ones bit for bit),
+    the consensus (within 1e-5 of the oracle's mean), ``sharded_batched_pair`` on (4,
     4096, 4096) (K2 twice a rank, equal to ``pair_reference``) and
     ``sharded_stream_sum`` on (16384, 8192) (K3 once a rank on its
     2^26-element block, identity route, within 1e-6 rows max|a| of the f64
-    sum), with each rank's times.
+    sum), with each rank's times (captured and eager) and, over NCCL, each
+    rank's ``scenario_mpc`` row and the profile of its chained step.
     Two ranks on one card share it: their times are no scaling number.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
@@ -1477,18 +1488,32 @@ ROLLOUT_LIMIT = 1e-4  # max |dx| over 100 steps of 0.01 s, 0.1 rad states
 ILQR_LIMIT = 1e-3  # max |du|, cartpole T=40, 15 iterations, inputs up to ~86
 
 
+def _profile_lines(rows, top: int = 6) -> list:
+    return [f"{ms:.4f} ms {n:.1f}x {name[:80]}" for ms, n, name in rows[:top]]
+
+
 def slice_c_full(mesh, dev) -> dict:
     """Phase 14(b) at BASELINE config 5's size on each rank: the
-    scenario-split step and the consensus at 16384 scenarios, N=50, ADMM-20
-    (K1 once a call, within 1e-5 of the unsharded step's rows and within
-    ``ATOL_KERNEL`` of its plain version, the ADMM loop, on the rows);
-    ``sharded_batched_pair`` on ``(2 ranks, 4096, 4096)`` (K2 once a
-    matrix, equal to ``pair_reference`` bit for bit) and
-    ``sharded_stream_sum`` on ``(ranks 8192, 8192)`` (K3 once a rank on a
-    2^26-element block, within 1e-6 rows max|a| of the f64 column sum);
-    with this rank's times. Raises on a failed check."""
+    scenario-split step and the consensus at 16384 scenarios, N=50, ADMM-20,
+    counted eagerly (inside ``disable_capture()``: K1 once a call), the
+    rows within 1e-5 of the unsharded step's and within ``ATOL_KERNEL`` of
+    K1's plain version (the ADMM loop) on the rank's rows, the consensus
+    within 1e-5 of the oracle's mean. Over NCCL the step and the consensus
+    are also called captured and held bit for bit against their eager calls
+    (``bench.matches_eager``), and timed captured beside eagerly, and
+    ``benchmarks/scenario_mpc.run``'s row is taken with a profile of the
+    chained step captured and eagerly; over gloo every call runs eagerly (a
+    gloo group cannot be captured). Then ``sharded_batched_pair`` on ``(2
+    ranks, 4096, 4096)`` (K2 once a matrix, equal to ``pair_reference`` bit
+    for bit) and ``sharded_stream_sum`` on ``(ranks 8192, 8192)`` (K3 once a
+    rank on a 2^26-element block, within 1e-6 rows max|a| of the f64 column
+    sum); with this rank's times. Every rank must call it together. Raises
+    on a failed check."""
+    import torch.distributed as tdist
+
     from strided_tpu_torch import bench, config
     from strided_tpu_torch.benchmarks import scenario_mpc
+    from strided_tpu_torch.capture import disable_capture
     from strided_tpu_torch.core import kernels_special as ks
     from strided_tpu_torch.core import stream_reduce as sr
     from strided_tpu_torch.mpc import fused_admm as fa
@@ -1499,19 +1524,26 @@ def slice_c_full(mesh, dev) -> dict:
 
     err = lambda a, b: (a.double() - b.double()).abs().max().item()  # noqa: E731
     n = axis_size(mesh)
-    out = {}
+    nccl = tdist.get_backend(mesh.get_group("data")) == "nccl"
+    out = {"captured": nccl}
     model, ctrl = scenario_mpc.controller(device=dev)
     x = scenario_mpc.states(16384, dev)
     step = sharded_mpc_step(ctrl, model, mesh, scenario_mpc.DT)
     cons = scenario_consensus_control(ctrl, mesh)
     u_all, _ = ctrl.control(x)
-    fa.LAUNCHES = 0
-    _xn, u = step(x)
-    out["k1_launches_step"] = fa.LAUNCHES
+    with disable_capture():  # eager calls: the launches a call
+        fa.LAUNCHES = 0
+        xn, u = step(x)
+        out["k1_launches_step"] = fa.LAUNCHES
+        fa.LAUNCHES = 0
+        u_cons, _ = cons(x)
+        out["k1_launches_consensus"] = fa.LAUNCHES
+    if nccl:  # the captured calls, each held bit for bit against an eager one
+        (xn_c, u_c), out["step_first_ms"], _ = bench.matches_eager(lambda: step(x))
+        (uc_c, _), out["consensus_first_ms"], _ = bench.matches_eager(lambda: cons(x))
+        out["captured_equals_eager"] = (torch.equal(xn_c, xn) and torch.equal(u_c, u)
+                                        and torch.equal(uc_c, u_cons))
     out["step_u_err"] = err(gather(u, mesh), u_all)
-    fa.LAUNCHES = 0
-    u_cons, _ = cons(x)
-    out["k1_launches_consensus"] = fa.LAUNCHES
     out["consensus_err"] = err(u_cons, u_all.mean(0))
     out["u0"] = u[0].tolist()
     config.set_config(fused_admm=False)  # the same rows through K1's plain version
@@ -1522,13 +1554,28 @@ def slice_c_full(mesh, dev) -> dict:
     out["k1_plain_err"] = err(u, u_plain)
     if not (out["k1_launches_step"] == out["k1_launches_consensus"] == 1
             and out["k1_plain_err"] <= ATOL_KERNEL and out["step_u_err"] <= 1e-5
-            and out["consensus_err"] <= 1e-5):
+            and out["consensus_err"] <= 1e-5 and out.get("captured_equals_eager", True)):
         raise RuntimeError(f"slice C at full size: a check failed: {out}")
-    out["step_ms"] = bench.cuda_ms(lambda: step(x), reps=20, warmup=3)
-    out["consensus_ms"] = bench.cuda_ms(lambda: cons(x), reps=20, warmup=3)
-    buf = torch.zeros(4, device=dev)  # the consensus's all_reduce alone
+    if nccl:
+        out["step_ms"] = bench.cuda_ms(lambda: step(x), reps=20, warmup=3)
+        out["consensus_ms"] = bench.cuda_ms(lambda: cons(x), reps=20, warmup=3)
+    with disable_capture():
+        out["step_eager_ms"] = bench.cuda_ms(lambda: step(x), reps=20, warmup=3)
+        out["consensus_eager_ms"] = bench.cuda_ms(lambda: cons(x), reps=20, warmup=3)
+    buf = torch.zeros(4, device=dev)  # the consensus's all_reduce alone, eagerly
     out["all_reduce_ms"] = bench.cuda_ms(lambda: collective("all_reduce", buf, mesh),
                                          reps=20, warmup=3)
+    if nccl:  # the benchmark's row on these ranks, and its chained step profiled
+        row = scenario_mpc.run(device=dev)
+        for k in ("latency_ms", "eager_latency_ms", "device_ms", "first_call_ms"):
+            out["scenario_" + k] = row[k]
+        chain = scenario_mpc.chained_step(step, mesh)
+        dev_ms, kernels, rows = bench.device_profile(lambda: chain(x), calls=5)
+        out.update(profile_ms=dev_ms, profile_kernels=kernels, profile=_profile_lines(rows))
+        with disable_capture():
+            dev_ms, kernels, rows = bench.device_profile(lambda: chain(x), calls=5)
+        out.update(profile_eager_ms=dev_ms, profile_eager_kernels=kernels,
+                   profile_eager=_profile_lines(rows))
 
     gen = torch.Generator(device=dev).manual_seed(0)  # the same data on every rank
     xp = torch.randn((2 * n, 4096, 4096), generator=gen, device=dev)
@@ -1561,7 +1608,8 @@ def slice_c_rank(init_method, nproc, rank, backend, outdir) -> None:
     """One rank of phase 14(b), started by :func:`slice_c_ranks` as
     ``python3 chip_smoke.py --slice-c-rank <init_method> <nproc> <rank>
     <backend|auto> <outdir>``: the multi-process dry run
-    (``parallel.multiproc.dryrun_checks``), then :func:`slice_c_full`;
+    (``parallel.multiproc.dryrun_checks``, which over gloo on the card also
+    checks that a captured call is refused), then :func:`slice_c_full`;
     writes both to ``outdir/rank<rank>.npz``."""
     import torch.distributed as tdist
 
@@ -1587,7 +1635,8 @@ def slice_c_rank(init_method, nproc, rank, backend, outdir) -> None:
 def slice_c_ranks(nproc: int, backend, card) -> None:
     """Phase 14(b): ``nproc`` ranks of :func:`slice_c_rank` on the card
     (NCCL, one card a rank, unless ``backend="gloo"``); prints each rank's
-    numbers. Raises when a rank fails."""
+    numbers, and over NCCL each rank's ``scenario_mpc`` row and the profile
+    of its chained step. Raises when a rank fails."""
     import os
     import tempfile
 
@@ -1601,30 +1650,64 @@ def slice_c_ranks(nproc: int, backend, card) -> None:
         ranks = [dict(np.load(f"{outdir}/rank{r}.npz")) for r in range(nproc)]
     for r, res in enumerate(ranks):  # every check already passed in the rank
         f = {k[len("full_"):]: v for k, v in res.items() if k.startswith("full_")}
-        print(f"[14 slice C] rank {r} of {nproc} ({res['backend']}, {res['device']}): dry run "
-              f"K1 {res['k1_step_f32']}+{res['k1_consensus_f32']}, K2 {res['k2_launches']}, "
-              f"K3 {res['stream_launches']} launches; full size: u rows vs unsharded "
-              f"{f['step_u_err']:.3e}, consensus {f['consensus_err']:.3e} (limit 1e-5), "
-              f"vs plain ADMM {f['k1_plain_err']:.3e} (limit {ATOL_KERNEL}), "
-              f"K1 {f['k1_launches_step']}+{f['k1_launches_consensus']}, K2 "
+        captured = bool(f["captured"])
+        if captured:
+            mode = (f"captured: step and consensus == eager bit for bit "
+                    f"{bool(f['captured_equals_eager'])}, graphs in the dry run "
+                    f"{res['graph_captures']} captures / {res['graph_replays']} replays")
+            times = (f"step {f['step_ms']:.4f} ms captured, {f['step_eager_ms']:.4f} eager, "
+                     f"first call {f['step_first_ms']:.1f}; consensus {f['consensus_ms']:.4f} "
+                     f"captured, {f['consensus_eager_ms']:.4f} eager")
+        else:
+            mode = f"eager (gloo): a captured call refused ({str(res['err_gloo_graph'])[:60]}...)"
+            times = (f"step {f['step_eager_ms']:.4f} ms eager, consensus "
+                     f"{f['consensus_eager_ms']:.4f} eager")
+        print(f"[14 slice C] rank {r} of {nproc} ({res['backend']}, {res['device']}), {mode}; "
+              f"dry run K1 {res['k1_step_f32']}+{res['k1_consensus_f32']}, K2 "
+              f"{res['k2_launches']}, K3 {res['stream_launches']} launches; full size: u rows "
+              f"vs unsharded {f['step_u_err']:.3e}, consensus {f['consensus_err']:.3e} (limit "
+              f"1e-5), vs plain ADMM {f['k1_plain_err']:.3e} (limit {ATOL_KERNEL}), K1 "
+              f"{f['k1_launches_step']}+{f['k1_launches_consensus']} eagerly, K2 "
               f"{f['k2_launches']} (== plain: {f['k2_exact']}), K3 {f['k3_launches']} "
-              f"{[str(r) for r in f['k3_routes']]} err {f['k3_err']:.3e} (tol {f['k3_tol']:.3e}); step "
-              f"{f['step_ms']:.4f} ms, consensus {f['consensus_ms']:.4f} ms, all_reduce "
-              f"of 4 floats {f['all_reduce_ms']:.4f} ms; u[0] "
+              f"{[str(r) for r in f['k3_routes']]} err {f['k3_err']:.3e} (tol {f['k3_tol']:.3e}); "
+              f"{times}, all_reduce of 4 floats {f['all_reduce_ms']:.4f} ms eager; u[0] "
               f"{[round(float(v), 6) for v in f['u0']]} [{card}]")
+        if captured:
+            lat = float(f["scenario_latency_ms"])
+            print(f"[14 slice C] rank {r} of {nproc}: scenario_mpc chained step captured "
+                  f"{lat:.4f} ms, eager {float(f['scenario_eager_latency_ms']):.4f}, device "
+                  f"{float(f['scenario_device_ms']):.4f}, first call "
+                  f"{float(f['scenario_first_call_ms']):.1f}; profiled captured "
+                  f"{float(f['profile_kernels']):.0f} device ops, "
+                  f"{float(f['profile_ms']):.4f} device ms a step (busy share "
+                  f"{float(f['profile_ms']) / lat:.3f}); eagerly "
+                  f"{float(f['profile_eager_kernels']):.0f} ops, "
+                  f"{float(f['profile_eager_ms']):.4f} device ms (busy share "
+                  f"{float(f['profile_eager_ms']) / float(f['scenario_eager_latency_ms']):.3f}) "
+                  f"[{card}]")
+            for line in f["profile"]:
+                print(f"  rank {r} captured: {line}")
+            for line in f["profile_eager"][:3]:
+                print(f"  rank {r} eager: {line}")
 
 
 def slice_c_phase(dev, card) -> None:
     """Phase 14: slice C, the multi-GPU layer, on one process (a 1-rank NCCL
-    mesh) and on two ranks (:func:`slice_c_ranks`). Raises on any failed
-    check or failing rank."""
+    mesh: the step and the consensus counted eagerly, then captured and held
+    bit for bit against eager, K1 in their profiled replays, the sharded
+    rollout replaying the captured ``rollout``, ``scenario_mpc``'s row) and
+    on two ranks (:func:`slice_c_ranks`). Raises on any failed check or
+    failing rank."""
     import torch.distributed as tdist
 
     from strided_tpu_torch import bench
+    from strided_tpu_torch import capture as cap
     from strided_tpu_torch.benchmarks import scenario_mpc
+    from strided_tpu_torch.models import double_pendulum
     from strided_tpu_torch.mpc import fused_admm as fa
+    from strided_tpu_torch.mpc import rollout
     from strided_tpu_torch.parallel import (make_mesh, scenario_consensus_control,
-                                            sharded_mpc_step)
+                                            sharded_mpc_step, sharded_rollout)
 
     t0 = time.perf_counter()
     mesh = make_mesh(device="cuda")  # no process group yet: one NCCL rank
@@ -1634,38 +1717,91 @@ def slice_c_phase(dev, card) -> None:
         x = scenario_mpc.states(16384, dev)
         step = sharded_mpc_step(ctrl, model, mesh, scenario_mpc.DT)
         cons = scenario_consensus_control(ctrl, mesh)
-        fa.LAUNCHES = 0
-        xn, u = step(x)
-        torch.cuda.synchronize()
-        step_launches = fa.LAUNCHES
-        fa.LAUNCHES = 0
-        u_cons, _ = cons(x)
-        torch.cuda.synchronize()
-        cons_launches = fa.LAUNCHES
+        with cap.disable_capture():  # eager calls: the launches a call
+            fa.LAUNCHES = 0
+            xn, u = step(x)
+            torch.cuda.synchronize()
+            step_launches = fa.LAUNCHES
+            fa.LAUNCHES = 0
+            u_cons, _ = cons(x)
+            torch.cuda.synchronize()
+            cons_launches = fa.LAUNCHES
         u_loc, _ = ctrl.control(x)
         same = torch.equal(u, u_loc) and torch.equal(xn, model.step(x, u_loc, scenario_mpc.DT))
         same_cons = torch.equal(u_cons, u_loc.mean(0))
-        print(f"[14 slice C] one rank ({backend}), 16384 scenarios, N=50, ADMM-20: step == "
-              f"ctrl.control + model.step bit for bit: {same}; consensus == their mean: "
-              f"{same_cons}; K1 launches: step {step_launches}, consensus {cons_launches}")
-        if backend != "nccl" or not (same and same_cons) or (step_launches, cons_launches) != (1, 1):
+        graphs = cap.CAPTURES
+        fa.LAUNCHES = 0  # each first captured call: the warm-up's and the capture's; then eager
+        (xn_c, u_c), step_first, step_capture = bench.matches_eager(lambda: step(x))
+        step_recorded = fa.LAUNCHES
+        fa.LAUNCHES = 0
+        (uc_c, _), cons_first, cons_capture = bench.matches_eager(lambda: cons(x))
+        cons_recorded = fa.LAUNCHES
+        captured = (torch.equal(xn_c, xn) and torch.equal(u_c, u)
+                    and torch.equal(uc_c, u_cons))
+        graphs = cap.CAPTURES - graphs
+        print(f"[14 slice C] one rank ({backend}), 16384 scenarios, N=50, ADMM-20: eager step "
+              f"== ctrl.control + model.step bit for bit: {same}; consensus == their mean: "
+              f"{same_cons}; K1 launches eagerly: step {step_launches}, consensus "
+              f"{cons_launches}; captured (one graph each, {graphs} captures) == eager bit for "
+              f"bit: {captured}; K1 launches of the warm-up, the capture and the eager call: "
+              f"step {step_recorded}, consensus {cons_recorded}; first call step "
+              f"{step_first:.1f} ms (capture "
+              f"{step_capture:.1f}), consensus {cons_first:.1f} ms (capture {cons_capture:.1f}) "
+              f"[{card}]")
+        if (backend != "nccl" or not (same and same_cons and captured) or graphs != 2
+                or (step_launches, cons_launches) != (1, 1)
+                or (step_recorded, cons_recorded) != (3, 3)):
             raise RuntimeError("slice C, one rank: a check failed (see the line above)")
+        # K1 in the profiled replays. The count a replay is printed, not held
+        # to 1: the profiler can drop a replay's records (0.8 a call has been
+        # read); the launch counts of the warm-up and the capture are exact.
+        for what, call in (("step", lambda: step(x)), ("consensus", lambda: cons(x))):
+            replays = cap.REPLAYS
+            profiled = bench.device_profile(call, calls=5)  # 3 warm-up calls, 5 profiled
+            k1 = sum(c for _ms, c, name in profiled[2] if "fused_admm_kernel" in name)
+            print(f"[14 slice C] one rank: the captured {what} profiled over 5 replays: "
+                  f"fused_admm_kernel {k1:.1f} a call, {profiled[1]:.0f} device ops, "
+                  f"{profiled[0]:.4f} device ms a call; replays {cap.REPLAYS - replays} [{card}]")
+            if not k1 > 0 or cap.REPLAYS - replays != 8:
+                raise RuntimeError(f"the captured {what}: K1 {k1} a replay, "
+                                   f"{cap.REPLAYS - replays} replays for 8 calls")
+
+        pend = double_pendulum()  # the sharded rollout replays the captured rollout
+        x0 = x[:1024, :4].contiguous() * 0.3
+        us = torch.full((1024, 20, 2), 0.01, device=dev)
+        roll = sharded_rollout(pend, mesh, 0.01)
+        graphs, replays = cap.CAPTURES, cap.REPLAYS
+        xs1, xs2 = roll(x0, us), roll(x0, us)
+        with cap.disable_capture():
+            xs_e = rollout(pend, x0, us, 0.01)
+        rolled = (cap.CAPTURES - graphs, cap.REPLAYS - replays)
+        print(f"[14 slice C] one rank: sharded_rollout 1024 x 20 twice: {rolled[0]} capture, "
+              f"{rolled[1]} replays, == eager rollout bit for bit: "
+              f"{torch.equal(xs1, xs_e) and torch.equal(xs2, xs_e)}")
+        if rolled != (1, 2) or not (torch.equal(xs1, xs_e) and torch.equal(xs2, xs_e)):
+            raise RuntimeError("sharded_rollout did not replay the captured rollout")
+
         fa.LAUNCHES = 0
         row = scenario_mpc.run(device=dev)  # over the same 1-rank group
         torch.cuda.synchronize()
         print(f"[14 slice C] scenario_mpc {json.dumps(row)}")
-        calls = scenario_mpc.REPS + scenario_mpc.WARMUP + 1  # the chained steps, one consensus
-        if fa.LAUNCHES != calls or row["ranks"] != 1:
-            raise RuntimeError(f"scenario_mpc: {fa.LAUNCHES} K1 launches for {calls} calls")
-        dev_ms = bench.graph_ms(lambda: step(x), reps=10, replays=3)
-        cons_ms = bench.cuda_ms(lambda: cons(x), reps=10, warmup=2)
-        print(f"[14 slice C] one rank: step {dev_ms:.4f} ms device time (CUDA graph), "
-              f"consensus {cons_ms:.4f} ms eagerly [{card}]")
-        bench.print_profile("scenario step 16384 x N=50 x ADMM-20, one rank", "step",
-                            row["latency_ms"], bench.device_profile(lambda: step(x), calls=5))
+        print(f"[14 slice C] one rank: chained step captured {row['latency_ms']:.4f} ms against "
+              f"{row['device_ms']:.4f} device ({row['latency_ms'] / row['device_ms']:.3f}x), "
+              f"eager {row['eager_latency_ms']:.4f}, first call {row['first_call_ms']:.1f} ms "
+              f"[{card}]")
+        if not row["captured"] or row["ranks"] != 1 or row["backend"] != "nccl":
+            raise RuntimeError(f"scenario_mpc: not a captured 1-rank NCCL row: {row}")
+        chain = scenario_mpc.chained_step(step, mesh)
+        bench.print_profile("scenario chained step 16384 x N=50 x ADMM-20, one rank, captured",
+                            "step", row["latency_ms"], bench.device_profile(lambda: chain(x),
+                                                                            calls=5))
+        with cap.disable_capture():
+            bench.print_profile("scenario chained step, one rank, eager", "step",
+                                row["eager_latency_ms"],
+                                bench.device_profile(lambda: chain(x), calls=5))
     finally:
         tdist.destroy_process_group()
-    del x, xn, u, u_loc, step, cons, ctrl
+    del x, xn, u, u_loc, step, cons, ctrl, chain, xn_c, u_c, uc_c
     torch.cuda.empty_cache()  # leave the card to the ranks
 
     slice_c_ranks(2, None if torch.cuda.device_count() >= 2 else "gloo", card)

@@ -80,7 +80,7 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):  # as capture.py
             for _ in range(reps):
                 fn()
     graph.replay()

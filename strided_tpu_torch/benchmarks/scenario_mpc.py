@@ -8,12 +8,23 @@ mesh, timed over chained steps with CUDA events, and the consensus control
 (one ``all_reduce``) checked finite. Run as one process, the mesh is one
 rank (NCCL); under ``torchrun`` it spans the ranks.
 
+The chained step (:func:`chained_step`: the split step, then over r > 1
+ranks the ``all_gather`` of the next states) is one captured program, as
+the reference's is one jitted step: on each rank one CUDA-graph replay a
+step, NCCL's ``all_gather`` inside it. The reference's chain keeps the
+sharded array and issues no collective a step; this one gathers, since
+each function of the port takes the batch every rank holds.
+
     python3 -m strided_tpu_torch.benchmarks.scenario_mpc [--scenarios 16384]
 
 prints the card's name and power limit, then one JSON line: the
 reference's keys (``metric``, ``scenarios``, ``devices``, ``horizon``,
-``admm_iters``, ``latency_ms``, ``budget_ms``, ``within_budget``,
-``solves_per_s``) and ``backend``, ``ranks`` and ``card``.
+``admm_iters``, ``latency_ms`` (captured), ``budget_ms``,
+``within_budget``, ``solves_per_s``), ``backend``, ``ranks`` and ``card``,
+and the captured chain's ``eager_latency_ms`` (the same chain inside
+``disable_capture()``), ``device_ms`` (``bench.graph_ms``),
+``first_call_ms`` (warm-up, capture, instantiation and one replay, held
+bit for bit against an eager step), ``capture_ms`` and ``captured``.
 """
 
 from __future__ import annotations
@@ -24,13 +35,14 @@ import json
 import numpy as np
 import torch
 
-from ..bench import card_label, cuda_ms
+from ..bench import card_label, cuda_ms, graph_ms, matches_eager
+from ..capture import disable_capture
 from ..models import hover_input, hover_state, quadrotor
 from ..mpc import make_hover_mpc
-from ..parallel import (axis_size, gather, init_distributed, make_mesh,
+from ..parallel import (axis_size, gather, init_distributed, make_mesh, mesh_capture,
                         scenario_consensus_control, sharded_mpc_step)
 
-__all__ = ["controller", "states", "run", "main", "DT", "WARMUP", "REPS"]
+__all__ = ["controller", "states", "chained_step", "run", "main", "DT", "WARMUP", "REPS"]
 
 DT = 0.02
 WARMUP = 3  # untimed chained steps before the timed ones
@@ -60,26 +72,47 @@ def states(scenarios: int = 16384, device="cuda", dtype=torch.float32) -> torch.
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def chained_step(step, mesh):
+    """The benchmark's chained step as one captured program
+    (``parallel.mesh_capture``): ``step`` (a ``sharded_mpc_step``), then,
+    over r > 1 ranks, the ``all_gather`` of the rank's next states, so that
+    ``(B, n) -> (B, n)`` feeds the next call on every rank."""
+    ranks = axis_size(mesh)
+
+    def step_and_gather(x):
+        xn, _u = step(x)
+        return xn if ranks == 1 else gather(xn, mesh)
+
+    return mesh_capture(step_and_gather, mesh)
+
+
 def run(scenarios: int = 16384, horizon: int = 50, admm_iters: int = 20,
         budget_ms: float = 10.0, device="cuda") -> dict:
-    """Check and time the scenario-split step on the card over the ranks of
-    the process group (one rank of a group of its own when there is none);
-    returns the JSON row."""
+    """Check and time the captured chained step on the card over the ranks
+    of the process group (one rank of a group of its own when there is
+    none): its first call held bit for bit against the eager chain, then
+    captured and eagerly (``cuda_ms``) and as device time (``graph_ms``).
+    Every rank must call it together. Returns the JSON row."""
     if torch.device(device).type != "cuda":
         raise RuntimeError(f"scenario_mpc times a CUDA device, got {device!r}")
     mesh = make_mesh(device="cuda")
     ranks = axis_size(mesh)
     model, ctrl = controller(horizon, admm_iters, device)
     x = states(scenarios, device)
-    step = sharded_mpc_step(ctrl, model, mesh, DT)
+    chain = chained_step(sharded_mpc_step(ctrl, model, mesh, DT), mesh)
     cons = scenario_consensus_control(ctrl, mesh)
+    _, first_ms, capture_ms = matches_eager(lambda: chain(x))
     state = [x]
 
-    def chained():  # the next state feeds the next step (over r ranks, gathered)
-        xn, _u = step(state[0])
-        state[0] = xn if ranks == 1 else gather(xn, mesh)
+    def chained():  # the next state feeds the next step
+        state[0] = chain(state[0])
 
     ms = cuda_ms(chained, reps=REPS, warmup=WARMUP)
+    with disable_capture():
+        eager_ms = cuda_ms(chained, reps=REPS, warmup=WARMUP)
+    device_ms = graph_ms(chained, reps=REPS, replays=3)
+    if not torch.isfinite(state[0]).all():
+        raise RuntimeError("scenario_mpc: the chained steps produced non-finite states")
     u_cons, _ = cons(x)
     if not torch.isfinite(u_cons).all():
         raise RuntimeError("scenario_mpc: the consensus control is not finite")
@@ -93,6 +126,11 @@ def run(scenarios: int = 16384, horizon: int = 50, admm_iters: int = 20,
         "budget_ms": budget_ms,
         "within_budget": ms <= budget_ms,
         "solves_per_s": scenarios / (ms * 1e-3),
+        "eager_latency_ms": eager_ms,
+        "device_ms": device_ms,
+        "first_call_ms": first_ms,
+        "capture_ms": capture_ms,
+        "captured": True,
         "backend": torch.distributed.get_backend(mesh.get_group("data")),
         "ranks": ranks,
         "card": card_label(),

@@ -32,10 +32,20 @@ live one's ``pool()``; the pool goes with the last of them). Replays are
 ordered on the current stream, and each call's outputs are cloned before it
 returns, so no graph needs another's memory to outlive its replay.
 
+A capture records this thread's work only (``capture_error_mode=
+"thread_local"``): NCCL's watchdog thread queries CUDA events while a
+captured collective is recorded, which a process-wide capture would count
+as an error. A collective is captured like any other launch once its
+communicator exists; the warm-up's eager call makes it.
+:func:`recorded` says whether work on given tensors would be recorded into
+a graph; the multi-GPU layer refuses a gloo group there, before any
+capture (``parallel/mesh.py::require_graph_backend``).
+
 ``CAPTURES`` counts captures, ``REPLAYS`` replays (the first call's
 included) and ``LAST_CAPTURE_MS`` is the host time of the last capture and
 its instantiation. A kernel's own launch count (``fused_admm.LAUNCHES``)
-counts host calls: the warm-up's and the capture's, and no replay.
+and the collectives of ``parallel.COLLECTIVES`` count host calls: the
+warm-up's and the capture's, and no replay.
 """
 
 from __future__ import annotations
@@ -49,8 +59,8 @@ import torch
 
 from .config import get_config
 
-__all__ = ["capture", "disable_capture", "signature", "Cache", "CAPTURES", "REPLAYS",
-           "LAST_CAPTURE_MS"]
+__all__ = ["capture", "disable_capture", "capturing", "recorded", "signature", "Cache", "CAPTURES",
+           "REPLAYS", "LAST_CAPTURE_MS"]
 
 CAPTURES: int = 0
 REPLAYS: int = 0
@@ -70,6 +80,21 @@ def disable_capture():
         yield
     finally:
         _eager_depth -= 1
+
+
+def capturing(tensors) -> bool:
+    """Whether work on ``tensors`` is being captured now: some tensor is on
+    the card and the current stream is capturing (a decorated function's
+    capture, or a caller's own graph)."""
+    return any(t.is_cuda for t in tensors) and torch.cuda.is_current_stream_capturing()
+
+
+def recorded(tensors) -> bool:
+    """Whether work on ``tensors`` goes into a CUDA graph instead of running:
+    it is being captured (:func:`capturing`), or a decorated function called
+    on them now would capture or replay (some tensor is on the card, outside
+    :func:`disable_capture` and a warm-up)."""
+    return capturing(tensors) or (not _eager_depth and any(t.is_cuda for t in tensors))
 
 
 def _arg_key(v, objects: list, nested: bool = False):
@@ -167,7 +192,7 @@ def _record(fn, args, kwargs, dev):
     pool = next(iter(live)).pool() if live else torch.cuda.graph_pool_handle()
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
         outputs = fn(*s_args, **s_kwargs)
     LAST_CAPTURE_MS = (time.perf_counter() - t0) * 1e3
     live.add(graph)

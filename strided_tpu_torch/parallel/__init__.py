@@ -1,6 +1,7 @@
 """The multi-GPU layer over ``torch.distributed`` (counterpart of
 ``strided_tpu/parallel``): meshes of ranks, scenario-split MPC steps and
-the consensus all-reduce, tensor-parallel matmuls, the mesh-split engine
+the consensus all-reduce (captured on the card, NCCL's collectives in the
+graph), tensor-parallel matmuls, the mesh-split engine
 ops (K2 and K3 per rank), and the multi-process check."""
 
 from .mesh import (  # noqa: F401
@@ -14,6 +15,7 @@ from .mesh import (  # noqa: F401
 )
 from .sharded import (  # noqa: F401
     shard_batch,
+    mesh_capture,
     sharded_rollout,
     sharded_mpc_step,
     scenario_consensus_control,

@@ -13,24 +13,33 @@ results with explicit collectives over the group of one mesh dimension
 the ranks' blocks. Every collective goes through :func:`collective`, which
 counts it in ``COLLECTIVES``: the counterpart of the reference's checks of
 the compiled HLO's collectives.
+
+On the card the layer's functions run captured (``sharded.py``), and an
+NCCL collective is recorded into the graph like a kernel. A gloo group
+cannot be recorded, since gloo moves CUDA tensors through the host:
+:func:`require_graph_backend` refuses it before a captured function runs
+and in a collective issued while a graph is being captured, and a caller
+who wants gloo on the card calls inside ``capture.disable_capture()``.
 """
 
 from __future__ import annotations
 
 import math
 import warnings
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from .. import capture as _capture
 from . import dist as _dist
 
 __all__ = ["make_mesh", "shard", "gather", "axis_size", "axis_index", "collective",
-           "COLLECTIVES"]
+           "require_graph_backend", "COLLECTIVES"]
 
-# collectives issued through :func:`collective`, by kind
+# collectives issued through :func:`collective`, by kind: host calls, so the
+# warm-up and the capture of a captured function count and a replay does not
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
 
 
@@ -96,31 +105,53 @@ def shard(x: torch.Tensor, mesh: DeviceMesh, dim: int = 0, axis: str = "data") -
 def gather(t: torch.Tensor, mesh: DeviceMesh, dim: int = 0, axis: str = "data") -> torch.Tensor:
     """The global tensor whose blocks along ``dim`` the ranks of mesh
     dimension ``axis`` hold, in rank order (the reverse of :func:`shard`);
-    replicated. One ``all_gather``."""
-    return torch.cat(collective("all_gather", t, mesh, axis), dim=dim)
+    replicated. One ``all_gather``; along dim 0 no copy follows it."""
+    return collective("all_gather", t, mesh, axis).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def require_graph_backend(mesh: DeviceMesh, axis: str, tensors: Sequence[torch.Tensor],
+                          what: str) -> None:
+    """Raise ``RuntimeError`` naming the backend when work of ``what`` on
+    ``tensors`` would be recorded into a CUDA graph
+    (``capture.recorded``) and the group of mesh dimension ``axis`` is not
+    NCCL's. Gloo takes CUDA tensors through the host, which a graph cannot
+    record; the work never runs eagerly in its place."""
+    backend = dist.get_backend(mesh.get_group(axis))
+    if backend != "nccl" and _capture.recorded(tensors):
+        raise RuntimeError(
+            f"{what}: mesh axis {axis!r} runs on {backend}, which a CUDA graph cannot record "
+            f"({backend} moves CUDA tensors through the host); use NCCL, or call inside "
+            f"capture.disable_capture() to run eagerly")
 
 
 def collective(kind: str, t: torch.Tensor, mesh: DeviceMesh, axis: str = "data",
                op=dist.ReduceOp.SUM, src: int = 0):
     """Issue one collective over the group of mesh dimension ``axis`` and
     count it in ``COLLECTIVES``: ``"all_reduce"`` (in place with ``op``;
-    returns ``t``), ``"all_gather"`` (the list form, which gloo implements
-    for CUDA tensors too; returns the ranks' tensors in rank order) or
-    ``"broadcast"`` (in place from the axis coordinate ``src``; returns
-    ``t``)."""
+    returns ``t``), ``"all_gather"`` (returns the ranks' tensors stacked
+    in rank order, ``(ranks, *t.shape)``: NCCL's
+    ``all_gather_into_tensor``, or gloo's list form into the stack's rows)
+    or ``"broadcast"`` (in place from the axis coordinate ``src``; returns
+    ``t``). Refuses a gloo group while the stream is capturing
+    (:func:`require_graph_backend`): a caller's own graph."""
     group = mesh.get_group(axis)
+    if kind not in COLLECTIVES:
+        raise ValueError(f"collective {kind!r}: expected one of {sorted(COLLECTIVES)}")
+    if _capture.capturing((t,)):
+        require_graph_backend(mesh, axis, (t,), kind)
     if kind == "all_reduce":
         COLLECTIVES[kind] += 1
         dist.all_reduce(t, op=op, group=group)
         return t
     if kind == "all_gather":
         t = t.contiguous()
-        parts: List[torch.Tensor] = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        out = t.new_empty((dist.get_world_size(group), *t.shape))
         COLLECTIVES[kind] += 1
-        dist.all_gather(parts, t, group=group)
-        return parts
-    if kind == "broadcast":
-        COLLECTIVES[kind] += 1
-        dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
-        return t
-    raise ValueError(f"collective {kind!r}: expected one of {sorted(COLLECTIVES)}")
+        if dist.get_backend(group) == "nccl":
+            dist.all_gather_into_tensor(out, t, group=group)
+        else:
+            dist.all_gather(list(out.unbind(0)), t, group=group)
+        return out
+    COLLECTIVES[kind] += 1
+    dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
+    return t

@@ -177,13 +177,23 @@ def dryrun_checks(mesh, device) -> dict:
     (``name_block``), the collectives each call issued (``coll_name``:
     all_reduce, all_gather, broadcast), the launches of K1 (``k1_step_f32``,
     ``k1_consensus_f32``), K2 (``k2_launches``) and K3 (``stream_launches``)
-    on this rank, and the messages of the refusals (``err_name``)."""
+    on this rank, and the messages of the refusals (``err_name``).
+
+    The step and the consensus are counted eagerly, inside
+    ``disable_capture()``: a captured call's counts are its warm-up's and
+    capture's, and a replay adds none. Then they are called as a user calls
+    them and held bit for bit against the eager results: on the card over
+    NCCL one capture and one replay each (``graph_captures``,
+    ``graph_replays``), over gloo on the card a ``RuntimeError`` before any
+    capture (``err_gloo_graph``), on the CPU the functions as they are."""
     import dataclasses
     import warnings
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
+    from .. import capture as cap
     from ..api import to_array
     from ..config import get_config, set_config
     from ..core import kernels_special as ks
@@ -201,6 +211,7 @@ def dryrun_checks(mesh, device) -> dict:
 
     n = axis_size(mesh)
     on_card = torch.device(device).type == "cuda"
+    gloo_card = on_card and dist.get_backend(mesh.get_group("data")) != "nccl"
     inp = dryrun_inputs()
     t = lambda k: torch.as_tensor(inp[k], device=device)  # noqa: E731
     res = {}
@@ -226,20 +237,37 @@ def dryrun_checks(mesh, device) -> dict:
         raise RuntimeError(f"{name}: no ValueError")
 
     # ---- the scenario-split step and the consensus, f64 then f32 (K1) ----
+    graphs = (cap.CAPTURES, cap.REPLAYS)
     for dtype, sfx, tol in ((torch.float64, "", 1e-12), (torch.float32, "_f32", 1e-5)):
         model, ctrl = _controller(dtype, device)
         x, xc = t("x_step").to(dtype), t("x_cons").to(dtype)
+        step = sharded_mpc_step(ctrl, model, mesh, 0.05)
+        cons = scenario_consensus_control(ctrl, mesh)
         u_loc, _ = ctrl.control(x)
-        k1 = fa.LAUNCHES
-        xn, u = counted("step" + sfx, lambda: sharded_mpc_step(ctrl, model, mesh, 0.05)(x))
-        res["k1_step" + sfx] = fa.LAUNCHES - k1
+        with cap.disable_capture():  # eager calls: the counts a call
+            k1 = fa.LAUNCHES
+            xn, u = counted("step" + sfx, lambda: step(x))
+            res["k1_step" + sfx] = fa.LAUNCHES - k1
+            k1 = fa.LAUNCHES
+            u_cons, plans = counted("consensus" + sfx, lambda: cons(xc))
+            res["k1_consensus" + sfx] = fa.LAUNCHES - k1
+        if gloo_card:
+            for fn, arg in ((step, x), (cons, xc)):
+                try:
+                    fn(arg)
+                except RuntimeError as e:
+                    res["err_gloo_graph"] = np.array(str(e))
+                else:
+                    raise RuntimeError(f"{fn.__name__} over gloo on the card ran instead of "
+                                       f"raising")
+        else:
+            same = [torch.equal(a, b) for a, b in zip((*step(x), *cons(xc)),
+                                                      (xn, u, u_cons, plans))]
+            _check(all(same), f"step{sfx}/consensus{sfx}: the decorated calls differ from "
+                              f"the eager ones (x, u, u_cons, plans equal: {same})")
         res.update({"step_u" + sfx: gather(u, mesh), "step_x" + sfx: gather(xn, mesh),
                     "step_block" + sfx: np.array(u.shape), "step_u_local" + sfx: u_loc,
                     "step_x_local" + sfx: model.step(x, u_loc, 0.05)})
-        k1 = fa.LAUNCHES
-        u_cons, plans = counted("consensus" + sfx,
-                                lambda: scenario_consensus_control(ctrl, mesh)(xc))
-        res["k1_consensus" + sfx] = fa.LAUNCHES - k1
         u_loc, plans_loc = ctrl.control(xc)
         res.update({"cons_u" + sfx: u_cons, "cons_plans" + sfx: gather(plans, mesh),
                     "cons_u_local" + sfx: u_loc.mean(0), "cons_plans_local" + sfx: plans_loc})
@@ -250,8 +278,15 @@ def dryrun_checks(mesh, device) -> dict:
         expect("consensus" + sfx, (1, 0, 0))
     _check(res["k1_step_f32"] == res["k1_consensus_f32"] == int(on_card),
            "K1 did not launch once a call on the card")
+    res["graph_captures"] = cap.CAPTURES - graphs[0]
+    res["graph_replays"] = cap.REPLAYS - graphs[1]
+    captures = 4 * int(on_card and not gloo_card)  # step and consensus, f64 and f32
+    _check(res["graph_captures"] == res["graph_replays"] == captures,
+           f"{res['graph_captures']} captures and {res['graph_replays']} replays, expected "
+           f"{captures} of each")
     if n > 1:  # 4n - 1 rows over n ranks: no even split
-        refused("batch", lambda: sharded_mpc_step(ctrl, model, mesh, 0.05)(x[: n * 4 - 1]))
+        with cap.disable_capture():
+            refused("batch", lambda: step(x[: n * 4 - 1]))
 
     # ---- a rollout and a generic batch function ----
     pend = double_pendulum()
