@@ -157,6 +157,19 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     sum), with each rank's times (captured and eager) and, over NCCL, each
     rank's ``scenario_mpc`` row and the profile of its chained step.
     Two ranks on one card share it: their times are no scaling number.
+15. the engine's four size gates (``config.py``, set from the card's
+    crossovers): at each gate one size at it and one just below through the
+    public engine (K2's ``(v + v.T) / 2``, K3's ``ssum(v, 0)``, K4's
+    ``scale_into(dst, 0.999, transpose(v))`` at ``map_min_elements`` and,
+    with the map gate at 1, at ``min_kernel_elements``): the kernel's
+    launch counted and its dispatch record at the gate, the plain path
+    below, both equal to the plain version (bit for bit; the sums within
+    1e-6 * rows * max|a|); ``benchmarks/sweeps.py --quick`` (every record
+    with both arms eagerly and as device time, no rate above the card's
+    peak, the rotation litmus); ``benchmarks/exp_contract.py`` (as ``python
+    -m``, a process of its own: its profiler must see the kernels): ``contract``
+    and ``mul`` read a lazily transposed operand with no copy before the
+    product; and one line of the chosen gates.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
 JSON object describing the twelve kernels (each with its time, its plain
@@ -298,6 +311,7 @@ def main() -> None:
     last = reduce_perm_phase(dev, card)
     mpc_stack_phase(dev, card)
     slice_c_phase(dev, card)
+    gates_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
@@ -780,7 +794,7 @@ def engine_phases(dev, card):
     n = 8192
     a = randn(n, n)
     v = st.strided(a)
-    ai = randi(8192, 4096)
+    ai = randi(8192, 8192)  # at K3's gate, 2^26
     tol = 1e-6 * n * a.abs().max().item()
     mean = sr.stream_reduce_reference(a, ewise.trace(lambda x: x * (1.0 / n), [torch.float32],
                                                      out_dtype=torch.float32), sr.RED_SUM)
@@ -789,7 +803,7 @@ def engine_phases(dev, card):
          "identity/vector"),
         ("smax(transpose(v), axis=1) 8192^2 f32", lambda: st.smax(st.transpose(v), axis=1),
          a.amax(0).reshape(n, 1), 0.0, "identity/vector"),
-        ("ssum(int32 8192x4096, axis=0)", lambda: st.ssum(st.strided(ai), axis=0),
+        ("ssum(int32 8192x8192, axis=0)", lambda: st.ssum(st.strided(ai), axis=0),
          ai.sum(0, keepdim=True, dtype=torch.int32), 0.0, "identity/vector"),
         ("smean(v, 0) 8192^2 f32", lambda: st.smean(v, 0), mean.reshape(1, n),
          1e-6 * n * (a.abs().max().item() / n), "amortized/vector"),
@@ -1874,6 +1888,115 @@ def mpc_stack_phase(dev, card) -> None:
     bench.print_profile("iLQR batch 256 x T=50 x 10, captured", "solve",
                         row["captured_latency_ms"], profiled)
     print(f"[13 mpc stack] {time.perf_counter() - t0:.1f} s")
+
+
+def gates_phase(dev, card) -> None:
+    """Phase 15: the engine's four size gates, as set from the card's
+    crossovers (``config.py``; ``benchmarks/exp_crossover.py``,
+    ``exp_mapgate.py``). At each gate, one size at it and one just below,
+    through the public engine: ``(v + v.T) / 2`` (K2), ``ssum(v, 0)`` (K3),
+    ``scale_into(dst, 0.999, transpose(v))`` (K4's map gate, and with the map
+    gate at 1 K4's floor ``min_kernel_elements``). At the gate the wrapper
+    must count its launch and the dispatch record name the kernel; below it
+    no launch and the plain path; both equal to the plain version bit for
+    bit (the sums within 1e-6 * rows * max|a|). Then ``sweeps --quick``
+    (every record with both arms' eager and device times, no rate above the
+    card's peak, the litmus) and ``exp_contract`` in a process of its own
+    (``contract`` and ``mul`` on ``transpose(v)``: no kernel before the
+    product, the allocator's peak one result more). The full ladders run
+    standalone (``python -m strided_tpu_torch.benchmarks.exp_crossover``,
+    ``...exp_mapgate``)."""
+    import math
+    import subprocess
+    import sys
+
+    import strided_tpu_torch as st
+    from strided_tpu_torch.benchmarks import sweeps
+    from strided_tpu_torch.core import kernels_special as ks
+
+    t0 = time.perf_counter()
+    cfg = st.get_config()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    randn = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
+
+    def expect(what, at_gate, call, want, kernel, record, tol=0.0):
+        got, route = sweeps.route_of(call)
+        ran = route["route"]
+        e = _max_err(got, want)
+        records = [route["expr"], route["reduce"], "K4 plan" if route["plan"] else ""]
+        print(f"[15 gates] {what}: route {ran!r} (records: {', '.join(filter(None, records))}), "
+              f"|engine - plain| {e:.3e} (limit {tol:g})")
+        ok = ran.startswith(kernel) and record(route) if at_gate else ran == "plain"
+        if not ok:
+            raise RuntimeError(f"{what}: route {route}, expected {kernel if at_gate else 'plain'}")
+        if not e <= tol:
+            raise RuntimeError(f"{what}: off the plain version by {e:.3e} > {tol:g}")
+
+    g = cfg.pair_kernel_min_elements
+    n = math.isqrt(g - 1) + 1  # the least square side at the gate
+    for side, at in ((n, True), (n - 1, False)):
+        a = randn(side, side)
+        v = st.strided(a)
+        expect(f"(v + v.T) / 2 at {side}^2 (K2's gate {g})", at,
+               lambda: st.to_array((v + st.transpose(v)) / 2),
+               ks.pair_reference(a, scale_mode="div", scale=2.0), "K2",
+               lambda r: r["expr"] == "pair-kernel")
+    g = cfg.min_stream_reduce_elements
+    for rows, at in ((g // 8192, True), (g // 8192 - 1, False)):
+        a = randn(rows, 8192)
+        expect(f"ssum(v, 0) at {rows}x8192 (K3's gate {g})", at,
+               lambda: st.materialize(st.ssum(st.strided(a), 0)), a.sum(0, keepdim=True), "K3",
+               lambda r: r["reduce"] == "stream-kernel",
+               tol=1e-6 * rows * a.abs().max().item())
+    for field, g in (("map_min_elements", cfg.map_min_elements),
+                     ("min_kernel_elements", cfg.min_kernel_elements)):
+        if field == "min_kernel_elements":
+            st.set_config(map_min_elements=1)
+        try:
+            for rows, at in ((g // 8192, True), (g // 8192 - 1, False)):
+                a = randn(rows, 8192)
+                dst = st.strided(torch.empty(8192, rows, device=dev))
+                expect(f"scale_into(dst, 0.999, transpose(v)) at {rows}x8192 ({field} {g})",
+                       at, lambda: st.to_array(st.scale_into(dst, 0.999,
+                                                             st.transpose(st.strided(a)))),
+                       torch.mul(a.T, 0.999).contiguous(), "K4", lambda r: r["plan"] is not None)
+        finally:
+            st.set_config(map_min_elements=cfg.map_min_elements)
+    print(f"[15 gates] chosen: min_kernel_elements {cfg.min_kernel_elements}, map_min_elements "
+          f"{cfg.map_min_elements}, pair_kernel_min_elements {cfg.pair_kernel_min_elements}, "
+          f"min_stream_reduce_elements {cfg.min_stream_reduce_elements} [{card}]")
+
+    rows = sweeps.run(quick=True)
+    litmus, records = rows[0], rows[1:]
+    if not litmus["ok"]:
+        raise RuntimeError(f"sweeps: the litmus failed (an L2-resident rerun?): {litmus}")
+    for r in records:
+        arms = [r[f"{arm}{kind}_ms"] for arm in ("engine", "torch") for kind in ("", "_device")]
+        if None in arms or any("no-measurement" in note for note in r["notes"]):
+            raise RuntimeError(f"sweeps {r['family']} {r['size']}: an arm is missing or no "
+                               f"measurement: {r}")
+    print(f"[15 gates] sweeps --quick: {len(records)} records, both arms eager and device, "
+          f"litmus x + 1.0 {litmus['add1_device_gbs']:.0f} GB/s against x.clone() "
+          f"{litmus['clone_device_gbs']:.0f} ({litmus['copies']} copies)")
+    # a process of its own: after the profiles of phases 5-14 this process's
+    # profiler has been seen to record no kernel at all
+    proc = subprocess.run([sys.executable, "-m", "strided_tpu_torch.benchmarks.exp_contract"],
+                          capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if len(lines) != 2:
+        raise RuntimeError(f"exp_contract exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check, timing = map(json.loads, lines)
+    for name in ("contract", "mul"):
+        c = check[name]
+        print(f"[15 gates] {name} on transpose(v) 1024^2: kernels {len(c['kernels'])}, before "
+              f"the product {c['before_product']}, peak growth {c['peak_growth']} B (limit "
+              f"{c['limit']}), |result - f64| {c['max_abs_err_vs_f64']:.3e}")
+    if not check["ok"] or proc.returncode != 0:
+        raise RuntimeError(f"exp_contract: a copy before the product, or the peak grew: {check}")
+    print(f"[15 gates] contract on transpose(v) 2048^2 {timing['lazy_ms']:.4f} ms (device "
+          f"{timing['lazy_device_ms']:.4f}) against einsum on the dense transpose "
+          f"{timing['dense_ms']:.4f} ({timing['dense_device_ms']:.4f}) [{card}]")
+    print(f"[15 gates] {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ warm-up: eagerly (inside ``disable_capture()``), through the captured entry
 points (``capture.py``: one CUDA-graph replay a call, first held bit for
 bit against the eager call), with the first call's time (warm-up, capture,
 instantiation), and as device time alone (``graph_ms``: many calls in one
-graph).
+graph). ``rotating_ms`` times an engine call on inputs that rotate through
+copies larger than 4x the card's L2, so that no size measures L2-resident
+reruns (the benchmark scripts in ``benchmarks/``).
 
     python -m strided_tpu_torch.bench      # gate, solves/s, device profile,
                                            # Riccati and iLQR accuracy, rollouts
@@ -32,7 +34,8 @@ from .models import cartpole, double_pendulum, hover_input, hover_state, quadrot
 from .mpc import QuadCost, ilqr, lqr_gains, rollout_final
 
 __all__ = ["mpc_accuracy", "mpc_solves", "step_device_ms", "profile_step", "cuda_ms",
-           "graph_ms", "card_label", "device_profile", "print_profile",
+           "graph_ms", "l2_bytes", "rotation_count", "rotated", "rotating_ms", "rate_notes",
+           "card_label", "device_profile", "print_profile", "plan_deviation",
            "matches_eager", "cartpole_cost", "rollout_problem", "rollout_times",
            "ilqr_accuracy", "riccati_accuracy"]
 
@@ -95,6 +98,91 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
+# NVIDIA H100 SXM data sheet: the L2 size (used where the card does not
+# report its own), the HBM3 rate and FP32 off the tensor cores.
+L2_BYTES_ASSUMED = 50 * 1024 * 1024
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def l2_bytes() -> tuple:
+    """``(bytes, how)``: the current card's L2 size as it reports it
+    (``"read"``), else the H100 SXM's 50 MB (``"assumed"``)."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    n = int(getattr(props, "L2_cache_size", 0) or 0)
+    return (n, "read") if n > 0 else (L2_BYTES_ASSUMED, "assumed")
+
+
+def rotation_count(copy_bytes: int, l2: int, operands: int = 1) -> int:
+    """How many copies of an input of ``copy_bytes`` a rotation needs: their
+    sum exceeds 4x the L2 of ``l2`` bytes, so a call never finds its input
+    in L2 from an earlier call. At least two calls' worth of copies; a
+    multiple of ``operands`` (a call reads that many copies)."""
+    m = max(2 * operands, 4 * l2 // max(1, copy_bytes) + 1)
+    return -(-m // operands) * operands
+
+
+def rotated(x: torch.Tensor, l2: int, operands: int = 1) -> list:
+    """``x`` and enough clones of it for :func:`rotating_ms`."""
+    m = rotation_count(x.numel() * x.element_size(), l2, operands)
+    return [x] + [x.clone() for _ in range(m - 1)]
+
+
+def rotating_ms(fn, inputs, min_calls: int = 20, replays: int = 3, operands: int = 1) -> dict:
+    """Milliseconds a call of ``fn`` when each call reads other copies of
+    its input than the call before it (``inputs``, from :func:`rotated`):
+    call j reads ``inputs[j % m]``, or with ``operands=2`` the pair
+    ``inputs[2j % m], inputs[(2j + 1) % m]``. Whole rotations of at least
+    ``min_calls`` calls are timed; so no call reads what the one before
+    left in L2. Returns ``eager_ms`` (CUDA events around the calls made
+    from Python, host included) and ``device_ms`` (the same calls captured
+    in one CUDA graph and replayed ``replays`` times, as :func:`graph_ms`
+    does; None with ``device_error`` where the call cannot be captured), and
+    ``copies``."""
+    m = len(inputs)
+    per = m // operands
+    if per * operands != m or per < 2:
+        raise ValueError(f"rotating_ms: {m} inputs for {operands} operand(s) a call")
+    args = [tuple(inputs[k * operands:(k + 1) * operands]) for k in range(per)]
+    calls = -(-min_calls // per) * per
+
+    def rotation(n):
+        for j in range(n):
+            fn(*args[j % per])
+
+    rotation(per)  # warm-up: builds, plans and caches
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rotation(calls)
+    end.record()
+    torch.cuda.synchronize()
+    row = {"eager_ms": start.elapsed_time(end) / calls, "copies": m}
+    try:
+        row["device_ms"] = graph_ms(lambda: rotation(calls), reps=1, replays=replays) / calls
+    except RuntimeError as e:  # a call that reads the host cannot be captured
+        row.update(device_ms=None, device_error=f"{type(e).__name__}: {str(e)[:160]}")
+    return row
+
+
+def rate_notes(gbs=None, tflops=None, unrotated_bytes: int = 0, l2: int = L2_BYTES_ASSUMED):
+    """The checks a record carries: a rate above the card's peak (3.35 TB/s,
+    or 67 TFLOP/s for an FP32 product) is no measurement; an operand that is
+    not rotated and fits the L2 may be read from it."""
+    notes = []
+    if gbs is not None and gbs > HBM_BYTES_PER_S / 1e9:
+        notes.append(f"no-measurement: {gbs:.0f} GB/s exceeds the HBM rate "
+                     f"({HBM_BYTES_PER_S / 1e9:.0f})")
+    if tflops is not None and tflops > FP32_OPS_PER_S / 1e12:
+        notes.append(f"no-measurement: {tflops:.1f} TFLOP/s exceeds the FP32 peak "
+                     f"({FP32_OPS_PER_S / 1e12:.0f})")
+    if 0 < unrotated_bytes < l2:
+        notes.append(f"an operand of {unrotated_bytes / 1e6:.1f} MB is not rotated and fits "
+                     f"the L2 ({l2 / 1e6:.1f} MB): it may be read from L2")
+    return notes
+
+
 def matches_eager(fn):
     """Call ``fn()`` (whose inputs stay where they are) through its captured
     entry points, then inside ``disable_capture()``, and hold each output
@@ -129,8 +217,17 @@ def mpc_accuracy(device="cuda", batch: int = 64, horizon: int = 50):
     input magnitude for scale. The gate is first < 1e-4, plan < 0.15. The
     plan runs captured (one CUDA-graph replay) on the card."""
     _model, ctrl = make_controller(horizon=horizon, dt=DT, device=device)
+    return plan_deviation(ctrl, batch)
+
+
+def plan_deviation(ctrl, batch: int = 64):
+    """``(dev_first, dev_plan, u_scale)`` of ``ctrl``'s captured plan on
+    ``batch`` states from ``default_rng(0)`` (uniform in +-0.3), against
+    the same over-relaxed ADMM run 2000 iterations in f64 numpy on the same
+    QP data (:func:`mpc_accuracy`'s oracle)."""
+    device = ctrl.x_eq.device
     x = np.random.default_rng(0).uniform(-0.3, 0.3, (batch, 12))
-    xt = torch.as_tensor(x, dtype=torch.float32, device=device)
+    xt = torch.as_tensor(x, dtype=ctrl.x_eq.dtype, device=device)
     U = capture(ctrl.plan)(xt).double().cpu().numpy()  # (batch, N, m)
 
     f64 = lambda t: t.double().cpu().numpy()

@@ -1,6 +1,5 @@
-"""Probe scripts of the port: the transpose-pair family's kernels, measured
-on the card (``python -m strided_tpu_torch.benchmarks.exp_sym``,
-``... .exp_pair_rect``)."""
+"""Benchmark and probe scripts of the port, measured on the card (``python
+-m strided_tpu_torch.benchmarks.exp_sym``, ``... .sweeps``, ...)."""
 
 import json
 import sys
@@ -45,3 +44,25 @@ def same(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Equal bit for bit as values, NaNs in the same places."""
     nan = torch.isnan(want)
     return bool(torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan]))
+
+
+def time_arm(row: dict, arm: str, fn, inputs, traffic: dict, operands: int = 1) -> None:
+    """Time ``fn`` over the rotated ``inputs`` (``bench.rotating_ms``) into
+    ``row``: ``{arm}_ms`` and ``{arm}_device_ms``, the rates of ``traffic``
+    (``{"bytes": n}``: ``{arm}_gbs``, ``{arm}_device_gbs``; ``{"flops": n}``:
+    ``_tflops``), ``copies``, and ``bench.rate_notes`` (or why the device
+    time is missing) under ``notes``."""
+    from ..bench import rate_notes, rotating_ms
+
+    t = rotating_ms(fn, inputs, operands=operands)
+    unit, per_ms = (("gbs", traffic["bytes"] / 1e6) if "bytes" in traffic
+                    else ("tflops", traffic["flops"] / 1e9))
+    row["copies"] = t["copies"]
+    notes = row.setdefault("notes", [])
+    for kind, key in (("", "eager_ms"), ("_device", "device_ms")):
+        ms = row[f"{arm}{kind}_ms"] = t[key]
+        if ms is None:
+            notes.append(f"{arm} device time not measured: {t['device_error']}")
+            continue
+        rate = row[f"{arm}{kind}_{unit}"] = per_ms / ms
+        notes += [f"{arm}{kind}: {n}" for n in rate_notes(**{unit: rate})]

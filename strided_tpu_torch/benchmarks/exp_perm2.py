@@ -18,8 +18,10 @@ the TPU names:
   "default";
 - ``plain`` (the TPU's ``xla``): ``x.permute(3, 2, 1, 0).contiguous()``;
 - ``engine``: the port's ``permutedims_into``; at 64^4 = 2^24 elements it is
-  below ``map_min_elements`` (2^25) and takes the plain path, as the JAX
-  package's does; the row records the route.
+  below ``map_min_elements`` (2^26, where K4's maps stop losing to the
+  plain path in eager time on the card: ``exp_mapgate``) and takes the
+  plain path, as the JAX package's does below its 2^25; the row records the
+  route.
 
     python -m strided_tpu_torch.benchmarks.exp_perm2 [variant,names] [D]
 

@@ -17,7 +17,8 @@ block geometry. The variants keep the TPU names:
   output; the result is the same reversal;
 - ``engine`` (the TPU's ``engine_div2``: ``pallas_budget_divisor`` is a TPU
   field the port does not have): the port's ``permutedims_into``, whose
-  route at 64^4 is the plain path (below ``map_min_elements``), recorded.
+  route at 64^4 is the plain path (below ``map_min_elements``, 2^26 on the
+  card: ``exp_mapgate``), recorded.
 
     python -m strided_tpu_torch.benchmarks.exp_perm_probe [variant,names] [D]
 

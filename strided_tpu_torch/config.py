@@ -25,6 +25,7 @@ class Config:
     # torch.set_float32_matmul_precision mode inside matmul_precision_scope.
     # "highest" keeps f32 matmuls in IEEE FP32: the ADMM accuracy gate (first
     # input within 1e-4 of a converged f64 oracle) fails with TF32 products.
+    # K1 (fused_admm) computes in FP32 whatever the mode.
     matmul_precision: str = "highest"
 
     # -- strided engine (core/) ------------------------------------------
@@ -48,13 +49,22 @@ class Config:
     # Maps whose operands need no transposed read through K4 (off: the
     # reference keeps them on its plain path).
     aligned_maps: bool = False
-    # Size gates, in elements. They are the reference's TPU values, kept
-    # so both packages dispatch alike in the parity tests; they are to be
-    # re-set from the card's measured crossover (PERF.md).
-    min_kernel_elements: int = 1 << 15
-    map_min_elements: int = 1 << 25
+    # Size gates, in elements: each the smallest size from which the
+    # kernel is no slower than the plain path in eager and device time at
+    # every larger size measured, rounded up to a power of two
+    # (``benchmarks/exp_crossover.py::pick_gate`` over two runs of
+    # ``exp_crossover`` and ``exp_mapgate`` on an NVIDIA H100 80GB HBM3 at
+    # 700.00 W; PERF.md, "The four size gates"). K2 (pair/sym, sym_bf16):
+    # from 2048^2.
+    # K3 (stream: ssum/smean, f32 and bf16): bf16 at 5793^2 (rows not
+    # 16-byte aligned: one column a thread) is slower than plain in device
+    # time, so from 8192^2. K4's maps (``exp_mapgate``): the engine's host
+    # time a K4 call (~0.22 ms) loses in eager time up to 5793^2 for
+    # 0.999*A.T; the rank-4 reversal's floor, 2^25, is min_kernel_elements.
+    min_kernel_elements: int = 1 << 25
+    map_min_elements: int = 1 << 26
     pair_kernel_min_elements: int = 1 << 22
-    min_stream_reduce_elements: int = 1 << 24
+    min_stream_reduce_elements: int = 1 << 26
 
 
 _config = Config()
@@ -73,7 +83,9 @@ def set_config(**kwargs) -> Config:
 
 def matmul_precision_scope(fn):
     """Decorator: run ``fn`` with f32 matmuls pinned to the configured
-    precision and TF32 off for cuBLAS, restoring both settings on exit.
+    precision, restoring the caller's settings on exit. At "highest" TF32
+    is off for cuBLAS; "high" and "medium" allow it, as the reference's
+    scope follows ``Config.matmul_precision``.
 
     PyTorch's defaults are already IEEE FP32 for matmuls, but they are
     process-global and any caller may have switched TF32 on; ADMM converges
@@ -86,8 +98,10 @@ def matmul_precision_scope(fn):
         old_prec = torch.get_float32_matmul_precision()
         old_tf32 = torch.backends.cuda.matmul.allow_tf32
         try:
-            torch.set_float32_matmul_precision(get_config().matmul_precision)
-            torch.backends.cuda.matmul.allow_tf32 = False
+            mode = get_config().matmul_precision
+            torch.set_float32_matmul_precision(mode)
+            if mode == "highest":
+                torch.backends.cuda.matmul.allow_tf32 = False
             return fn(*args, **kwargs)
         finally:
             torch.set_float32_matmul_precision(old_prec)

@@ -25,6 +25,7 @@ __all__ = [
     "Decomposition",
     "decompose",
     "materialize",
+    "operand",
     "scatter_into",
     "is_full_bijection",
 ]
@@ -116,6 +117,32 @@ def materialize(v: StridedView) -> torch.Tensor:
     return win.contiguous()
 
 
+def _dense(v: StridedView, dec: Decomposition) -> bool:
+    """The view's elements fill one run of its parent in some axis order: no
+    overlap or broadcast dim, the innermost stride 1 and each other stride
+    the size times the stride of the next (no gap)."""
+    return (not dec.overlapping
+            and len(dec.real_axes) == sum(1 for d in v.shape if d != 1)
+            and (not dec.sizes or dec.strides[-1] == 1)
+            and all(dec.strides[k] == dec.sizes[k + 1] * dec.strides[k + 1]
+                    for k in range(len(dec.sizes) - 1)))
+
+
+def operand(v: StridedView) -> torch.Tensor:
+    """The logical tensor of ``v`` for a library call that reads strides
+    (``torch.matmul``, ``torch.einsum``): the caller's storage seen through
+    the view, with no copy, when the view is dense (:func:`_dense`), has no
+    flip and is not conjugated; else :func:`materialize`. cuBLAS then takes
+    a lazily transposed operand through its transpose flag, as Strided.jl's
+    ``mul!`` hands BLAS one. The library never writes its operands."""
+    if v.conj or 0 in v.shape:
+        return materialize(v)
+    dec = decompose(v.shape, v.strides, v.offset)
+    if any(dec.flipped) or not _dense(v, dec):
+        return materialize(v)
+    return _window(v, v.parent)[0]
+
+
 def is_full_bijection(v: StridedView) -> bool:
     """True when the view is a bijective relabeling of its entire parent:
     no broadcast dims, exactly nested strides in physical order with
@@ -123,18 +150,10 @@ def is_full_bijection(v: StridedView) -> bool:
     if 0 in v.shape:
         return v.parent.numel() == 0
     dec = decompose(v.shape, v.strides, v.offset)
-    if dec.overlapping or dec.min_offset != 0:
+    if not _dense(v, dec) or dec.min_offset != 0:
         return False
-    if len(dec.real_axes) != sum(1 for d in v.shape if d != 1):
-        return False
-    n = len(dec.sizes)
-    if n == 0:
+    if not dec.sizes:
         return v.parent.numel() == 1
-    if dec.strides[-1] != 1:
-        return False
-    for k in range(n - 1):
-        if dec.strides[k] != dec.sizes[k + 1] * dec.strides[k + 1]:
-            return False
     return math.prod(dec.sizes) == v.parent.numel()
 
 

@@ -14,7 +14,10 @@ Counterpart of ``strided_tpu/linalg.py``.
   lazy transpose is the transpose-pair workload, and :func:`_pair_route`
   sends it where the expression spelling goes (K2, or the plain fused pair
   for distinct buffers).
-- ``contract`` is an einsum over materialized views.
+- ``contract`` is an einsum over the views. The vendor products read a
+  dense view of the caller's storage as it lies, a lazy transpose included
+  (``regularize.operand``: no copy before cuBLAS); a flipped, conjugated
+  or gapped view is materialized first.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 
 from .config import get_config, matmul_precision_scope
 from .core.view import StridedView, StridedLayoutError, held_device, strided
-from .core.regularize import materialize, scatter_into
+from .core.regularize import materialize, operand, scatter_into
 from .core.mapreduce import fused_mapreduce
 from .core.broadcast import sbroadcast_into
 
@@ -180,7 +183,7 @@ def _mul_blas(C, A, B, alpha, beta) -> StridedView:
     ``C.dtype`` once. ``beta * old`` keeps ``C``'s dtype, as the reference's
     weakly typed scalar product does. f32 stays IEEE FP32 (no TF32)."""
     acc = torch.promote_types(C.dtype, torch.float32) if C.dtype.is_floating_point else C.dtype
-    res = torch.matmul(materialize(A).to(acc), materialize(B).to(acc))
+    res = torch.matmul(operand(A).to(acc), operand(B).to(acc))
     if not _is_static_one(alpha):
         res = alpha * res
     if not _is_static_zero(beta):
@@ -220,7 +223,7 @@ def contract(subscripts: str, *operands, alpha=1) -> torch.Tensor:
     """Tensor contraction (einsum) over lazy strided-view operands, in their
     promoted dtype, f32 in IEEE FP32."""
     dev = held_device(*operands)
-    arrays = [materialize(strided(o, dev)) for o in operands]
+    arrays = [operand(strided(o, dev)) for o in operands]
     rdt = functools.reduce(torch.promote_types, [a.dtype for a in arrays])
     out = torch.einsum(subscripts, *[a.to(rdt) for a in arrays])
     if not _is_static_one(alpha):

@@ -66,8 +66,13 @@ def quadrotor(m=1.0, g=9.81, Jx=0.01, Jy=0.01, Jz=0.02) -> Model:
 
 
 def hover_state(dtype=torch.float32, device=None):
-    return torch.zeros(12, dtype=dtype, device=device)
+    """The hover equilibrium's state, on the card unless ``device`` is given
+    (the reference's lands on JAX's default device)."""
+    return torch.zeros(12, dtype=dtype, device="cuda" if device is None else device)
 
 
 def hover_input(m=1.0, g=9.81, dtype=torch.float32, device=None):
-    return torch.tensor([m * g, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    """The hover thrust ``[m*g, 0, 0, 0]``, on the card unless ``device`` is
+    given."""
+    return torch.tensor([m * g, 0.0, 0.0, 0.0], dtype=dtype,
+                        device="cuda" if device is None else device)

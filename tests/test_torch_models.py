@@ -45,7 +45,7 @@ def test_quadrotor_dynamics_and_step_match_jax(prec):
 def test_hover_linearization_matches_jax(prec, dt):
     tdt, jdt = DTYPES[prec]
     A_t, B_t = tm.quadrotor().linearize(
-        tm.hover_state(tdt), tm.hover_input(dtype=tdt), dt
+        tm.hover_state(tdt, "cpu"), tm.hover_input(dtype=tdt, device="cpu"), dt
     )
     A_j, B_j = jm.quadrotor().linearize(
         jm.hover_state(jdt), jm.hover_input(dtype=jdt), dt
@@ -78,3 +78,23 @@ def test_rk4_step_is_exact_for_linear_dynamics():
     h = a * dt
     want = x * (1 + h + h**2 / 2 + h**3 / 6 + h**4 / 24)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-15)
+
+
+def test_hover_point_is_on_the_card_unless_asked():
+    """``hover_state`` and ``hover_input`` go to the card unless ``device``
+    is given (without CUDA: torch's own error); with ``device="cpu"`` they
+    equal the JAX package's hover point."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    no_cuda = (AssertionError, RuntimeError)  # a CPU build of torch asserts, else it raises
+    for make in (tm.hover_state, tm.hover_input):
+        with pytest.raises(no_cuda, match="CUDA|NVIDIA"):
+            make()
+        with pytest.raises(no_cuda, match="CUDA|NVIDIA"):
+            make(dtype=torch.float64)
+    for tdt, jdt in DTYPES.values():
+        xs, us = tm.hover_state(tdt, "cpu"), tm.hover_input(dtype=tdt, device="cpu")
+        assert xs.device.type == us.device.type == "cpu"
+        assert xs.dtype == us.dtype == tdt
+        np.testing.assert_array_equal(xs.numpy(), np.asarray(jm.hover_state(jdt)))
+        np.testing.assert_array_equal(us.numpy(), np.asarray(jm.hover_input(dtype=jdt)))

@@ -54,7 +54,8 @@ def _torch_ctrl(N, dtype, dt=0.05, bound=0.5, iters=20, rho=1.0):
     Q = torch.diag(torch.tensor(Q_DIAG, dtype=dtype))
     R = torch.eye(4, dtype=dtype) * 0.1
     return stt.make_hover_mpc(
-        stt.quadrotor(), stt.hover_state(dtype), stt.hover_input(dtype=dtype), Q, R, Q,
+        stt.quadrotor(), stt.hover_state(dtype, "cpu"),
+        stt.hover_input(dtype=dtype, device="cpu"), Q, R, Q,
         horizon=N, dt=dt,
         u_min=torch.tensor([-5.0, -bound, -bound, -bound], dtype=dtype),
         u_max=torch.tensor([10.0, bound, bound, bound], dtype=dtype),
@@ -104,8 +105,9 @@ def test_unconstrained_controller_matches_jax():
     jc = jmpc.make_hover_mpc(jm.quadrotor(), jm.hover_state(jnp.float64),
                              jm.hover_input(dtype=jnp.float64), Q, np.eye(4) * 0.1, Q,
                              horizon=8, dt=0.05)
-    tc = stt.make_hover_mpc(stt.quadrotor(), stt.hover_state(torch.float64),
-                            stt.hover_input(dtype=torch.float64), Q, np.eye(4) * 0.1, Q,
+    tc = stt.make_hover_mpc(stt.quadrotor(), stt.hover_state(torch.float64, "cpu"),
+                            stt.hover_input(dtype=torch.float64, device="cpu"), Q,
+                            np.eye(4) * 0.1, Q,
                             horizon=8, dt=0.05)
     assert not tc.constrained and not jc.constrained
     x = np.random.default_rng(9).uniform(-0.3, 0.3, (4, 12))
@@ -276,3 +278,23 @@ def test_mpc_entry_points_default_to_the_card():
     with pytest.raises(NO_CUDA, match="CUDA|NVIDIA"):
         tbench.mpc_accuracy(batch=2, horizon=5)
     assert linear_mpc_from_numpy(d, device="cpu").qp.H.device.type == "cpu"
+
+
+@pytest.mark.parametrize("mode,tf32", [("high", True), ("medium", True)])
+def test_matmul_precision_scope_follows_the_configured_mode(mode, tf32):
+    """Below "highest" the scope sets the configured mode and leaves TF32
+    allowed (torch's own setting for the mode), as the reference's scope
+    follows ``matmul_precision``; the caller's "highest" comes back."""
+    seen = []
+    scoped = tconfig.matmul_precision_scope(
+        lambda: seen.append((torch.get_float32_matmul_precision(),
+                             torch.backends.cuda.matmul.allow_tf32)))
+    old = tconfig.get_config().matmul_precision
+    try:
+        tconfig.set_config(matmul_precision=mode)
+        scoped()
+    finally:
+        tconfig.set_config(matmul_precision=old)
+    assert seen == [(mode, tf32)]
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32

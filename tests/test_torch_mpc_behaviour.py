@@ -53,7 +53,7 @@ def test_cartpole_down_equilibrium():
 
 
 def test_quadrotor_hover_equilibrium():
-    xd = tm.quadrotor().dynamics(tm.hover_state(), tm.hover_input())
+    xd = tm.quadrotor().dynamics(tm.hover_state(device="cpu"), tm.hover_input(device="cpu"))
     np.testing.assert_allclose(xd.numpy(), 0.0, atol=1e-6)
 
 
@@ -67,7 +67,7 @@ def test_linearize_matches_finite_difference(name):
     x = torch.as_tensor(rng.standard_normal(n) * 0.1)
     u = torch.as_tensor(rng.standard_normal(k) * 0.1)
     if name == "quadrotor":
-        u = u + tm.hover_input(dtype=torch.float64)
+        u = u + tm.hover_input(dtype=torch.float64, device="cpu")
     A, B = m.linearize(x, u, 0.02)
     eps, base = 1e-6, m.step(x, u, 0.02)
     fd_A = torch.stack([(m.step(x + eps * e, u, 0.02) - base) / eps

@@ -133,14 +133,26 @@ def test_mxu_default_rounds_to_bf16_as_the_tpu_does():
 
 @pytest.mark.parametrize("tpu", [JP2, JPP], ids=["exp_perm2", "exp_perm_probe"])
 def test_engine_row_matches_jax_and_records_its_route(tpu):
+    """Both packages' map gates set explicitly above 16^4 (the port's
+    default is the card's crossover, the JAX package's the TPU's): both
+    take their plain path, with equal values."""
+    from strided_tpu import config as jcfg
     from strided_tpu.core import executor_pallas
+    from strided_tpu_torch import config as tcfg
 
     x = _input(11)
-    executor_pallas.LAST_PLAN.clear()
-    jgot = np.asarray(tpu.engine_rank4(jnp.asarray(x)))
-    assert not executor_pallas.LAST_PLAN  # 16^4 is below the JAX map gate: XLA
-    before = dict(pk.LAUNCHES)
-    got, route = pk.engine_reversal(torch.from_numpy(x))
+    jold, told = jcfg.get_config().pallas_map_min_elements, tcfg.get_config().map_min_elements
+    jcfg.set_config(pallas_map_min_elements=1 << 17)
+    tcfg.set_config(map_min_elements=1 << 17)
+    try:
+        executor_pallas.LAST_PLAN.clear()
+        jgot = np.asarray(tpu.engine_rank4(jnp.asarray(x)))
+        assert not executor_pallas.LAST_PLAN  # 16^4 is below the JAX map gate: XLA
+        before = dict(pk.LAUNCHES)
+        got, route = pk.engine_reversal(torch.from_numpy(x))
+    finally:
+        jcfg.set_config(pallas_map_min_elements=jold)
+        tcfg.set_config(map_min_elements=told)
     assert route == "plain" and pk.LAUNCHES == before
     np.testing.assert_array_equal(got.numpy(), jgot)
     np.testing.assert_array_equal(jgot, _rev(x))

@@ -31,7 +31,8 @@ REL = {"f64": 1e-12, "f32": 2e-5}
 
 def _hover(dtype=torch.float64, dt=0.05):
     """Port side: (A, B, Q, R) of the quadrotor at hover."""
-    A, B = tm.quadrotor().linearize(tm.hover_state(dtype), tm.hover_input(dtype=dtype), dt)
+    A, B = tm.quadrotor().linearize(tm.hover_state(dtype, "cpu"),
+                                    tm.hover_input(dtype=dtype, device="cpu"), dt)
     Q = torch.diag(torch.tensor(Q_DIAG, dtype=dtype))
     return A, B, Q, torch.eye(4, dtype=dtype) * 0.1
 

@@ -68,7 +68,8 @@ for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
     as_t = lambda v: torch.tensor(v, dtype=dtype)
     Q = torch.diag(as_t({Q_DIAG}))
     model = quadrotor()
-    ctrl = make_hover_mpc(model, hover_state(dtype), hover_input(dtype=dtype), Q,
+    ctrl = make_hover_mpc(model, hover_state(dtype, "cpu"),
+                          hover_input(dtype=dtype, device="cpu"), Q,
                           torch.eye(4, dtype=dtype) * 0.1, Q, horizon=8, dt={DT},
                           u_min=as_t({U_MIN}), u_max=as_t({U_MAX}), admm_iters={ITERS})
     step = tpar.sharded_mpc_step(ctrl, model, mesh, {DT})
@@ -149,7 +150,8 @@ def _port_controller(dtype):
     as_t = lambda v: torch.tensor(v, dtype=dtype)  # noqa: E731
     Q = torch.diag(as_t(Q_DIAG))
     model = quadrotor()
-    ctrl = make_hover_mpc(model, hover_state(dtype), hover_input(dtype=dtype), Q,
+    ctrl = make_hover_mpc(model, hover_state(dtype, "cpu"),
+                          hover_input(dtype=dtype, device="cpu"), Q,
                           torch.eye(4, dtype=dtype) * 0.1, Q, horizon=8, dt=DT,
                           u_min=as_t(U_MIN), u_max=as_t(U_MAX), admm_iters=ITERS)
     return model, ctrl
