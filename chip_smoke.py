@@ -84,8 +84,9 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 10. linalg at full size: ``mul`` f32 8192^2 through cuBLAS (equal to the
     plain ``alpha * a @ b + beta * c`` under IEEE FP32, and within 1e-2 of
     the f64 product: TF32 products would miss by ~4e-2), a transposed
-    operand and a bf16 ``mul`` (f32 product, one rounding) against their
-    plain counterparts, ``axpby(0.5, transpose(v), 0.5, v)`` at 8192^2
+    operand against its plain counterpart, a bf16 ``mul`` (bf16 operands
+    run natively: the single-pass product, within its f32 summation-order
+    bound of the plain one, then one rounding), ``axpby(0.5, transpose(v), 0.5, v)`` at 8192^2
     through K2 (record ``pair-kernel``, exact), the int32 generic ``mul`` at
     512^3 with ``kernel_reductions`` off and on (exact, route recorded) and
     ``v @ w``; K2's launches read for this phase alone; times of ``mul`` and
@@ -170,6 +171,21 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     -m``, a process of its own: its profiler must see the kernels): ``contract``
     and ``mul`` read a lazily transposed operand with no copy before the
     product; and one line of the chosen gates.
+16. the reference's precision name "default" and what takes it: the
+    single-pass bf16 product (``config.matmul``, the route it took printed)
+    against its plain version (operands rounded to bf16, IEEE FP32) at
+    16384x200 @ 200x200 and 4096^2, within the f32 summation-order bound
+    2 k 2^-24 (|a| @ |b|) elementwise; ``qp_solve`` on the main path's QP
+    with ``coarse_iters`` 0 of 20 (K1 once, equal bit for bit to K1 on the
+    IEEE FP32 ``g`` and warm start) and 12 of 20 (no K1), and one coarse
+    iteration against the plain product's within alpha times that bound;
+    ``closed_loop`` at batch 16384 with ``admm_coarse_iters`` 12 of 20,
+    captured and eager bit for bit, no K1 launch; ``mul`` at "default" at
+    2048^2 against the plain product; ``symmetrize(x, 256)`` and
+    ``symmetrize(x, tile=64)`` equal to ``(x + x.T) / 2`` at 4000^2 bit for
+    bit; ``python -m strided_tpu_torch.bench`` in a process of its own
+    (exit 0, its last line a JSON object with ``metric``, ``value``,
+    ``unit``, ``vs_baseline``, printed here).
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
 JSON object describing the twelve kernels (each with its time, its plain
@@ -312,6 +328,7 @@ def main() -> None:
     mpc_stack_phase(dev, card)
     slice_c_phase(dev, card)
     gates_phase(dev, card)
+    precision_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
@@ -550,6 +567,123 @@ def _max_err(got: torch.Tensor, want: torch.Tensor) -> float:
         raise RuntimeError(f"shape or NaN pattern differs: {tuple(got.shape)} vs "
                            f"{tuple(want.shape)}")
     return (g - w).nan_to_num().abs().max().item()
+
+
+def _bf16_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound between two f32 summation orders of the product of
+    ``a`` and ``b`` rounded to bf16: each within (k - 1) 2^-24 sum|a_i b_i|
+    of the exact sum, so 2 k 2^-24 (|a| @ |b|) apart."""
+    from strided_tpu_torch import config
+
+    return 2 * a.shape[-1] * 2.0 ** -24 * config.bf16_matmul_reference(
+        a.to(torch.bfloat16).abs(), b.to(torch.bfloat16).abs())
+
+
+def precision_phase(dev, card) -> None:
+    """Phase 16: the precision name "default" and what takes it (see the
+    module docstring)."""
+    import dataclasses
+    import subprocess
+    import sys
+
+    import strided_tpu_torch as st
+    from strided_tpu_torch import capture as cap, closed_loop, config, qp_solve
+    from strided_tpu_torch.bench import matches_eager
+    from strided_tpu_torch.entry import make_controller
+    from strided_tpu_torch.mpc import fused_admm as fa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    randn = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
+
+    def bounded(what, got, want, limit):
+        e = (got - want).abs()
+        share = (e / limit).max().item()
+        print(f"[16 precision] {what}: max |got - plain| {e.max().item():.3e}, worst share of "
+              f"its bound {share:.3f}")
+        if not (e <= limit).all():
+            raise RuntimeError(f"{what}: off the plain single-pass product past its bound")
+
+    print(f"[16 precision] the single-pass product's route: {config.BF16_ROUTE}")
+    for m, k, n in ((16384, 200, 200), (4096, 4096, 4096)):
+        a, b = randn(m, k), randn(k, n)
+        got = config.matmul(a, b, "default")
+        if got.dtype != torch.float32:
+            raise RuntimeError(f"the single-pass product returned {got.dtype}")
+        bounded(f"config.matmul(a, b, 'default') {m}x{k} @ {k}x{n}", got,
+                config.bf16_matmul_reference(a, b), _bf16_bound(a, b))
+
+    model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
+    qp, alpha = ctrl.qp, 1.6
+    x = torch.as_tensor(np.random.default_rng(16).uniform(-0.3, 0.3, (16384, 12)),
+                        dtype=torch.float32, device=dev)
+    solve = lambda iters, c: qp_solve(qp, x, ctrl.u_min, ctrl.u_max, iters,  # noqa: E731
+                                      coarse_iters=c)
+    g, z0, S, lo, hi = config.matmul_precision_scope(_admm_inputs)(ctrl, x)
+    want = fa.fused_admm(g, z0, S, lo, hi, rho=qp.rho, alpha=alpha, iters=20)
+    runs = {}
+    for c in (0, 12):
+        fa.LAUNCHES = 0
+        runs[c] = solve(20, c).reshape(16384, -1)
+        torch.cuda.synchronize()
+        runs[c, "k1"] = fa.LAUNCHES
+    print(f"[16 precision] qp_solve 20 iterations at batch 16384: coarse 0 K1 x{runs[0, 'k1']}, "
+          f"equal to K1 on the IEEE FP32 g and warm start: {torch.equal(runs[0], want)}; "
+          f"coarse 12 K1 x{runs[12, 'k1']}, max |U12 - U0| "
+          f"{(runs[12] - runs[0]).abs().max().item():.3e}")
+    if runs[0, "k1"] != 1 or not torch.equal(runs[0], want) or runs[12, "k1"] != 0:
+        raise RuntimeError("coarse 0 must run K1 once as before, coarse 12 no K1")
+    rhs = qp.rho * z0 - g  # the first iteration's right-hand side (y = 0)
+    u_rel = alpha * config.bf16_matmul_reference(rhs, S) + (1 - alpha) * z0
+    # alpha times the product's bound, and two f32 roundings of u_rel
+    bounded("qp_solve's first coarse iteration (1 of 1)", solve(1, 1).reshape(16384, -1),
+            torch.minimum(torch.maximum(u_rel, lo), hi),
+            alpha * _bf16_bound(rhs, S) + 2.0 ** -22 * u_rel.abs())
+
+    coarse = dataclasses.replace(ctrl, admm_iters=20, admm_coarse_iters=12)
+    fa.LAUNCHES = 0
+    captures = cap.CAPTURES
+    (xs, _us), first_ms, capture_ms = matches_eager(
+        lambda: closed_loop(coarse, model, x, 10, 0.02))
+    print(f"[16 precision] closed_loop batch 16384, 10 steps, admm_coarse_iters 12 of 20: "
+          f"captured == eager bit for bit, {cap.CAPTURES - captures} capture, K1 "
+          f"x{fa.LAUNCHES}, first call {first_ms:.1f} ms (capture {capture_ms:.1f}) [{card}]")
+    if fa.LAUNCHES != 0 or cap.CAPTURES != captures + 1 or not torch.isfinite(xs).all():
+        raise RuntimeError("the coarse closed loop launched K1, took no capture or diverged")
+
+    old = st.get_config().matmul_precision
+    a, b = randn(2048, 2048), randn(2048, 2048)
+    try:
+        st.set_config(matmul_precision="default")
+        got = st.materialize(st.mul(st.strided(torch.zeros(2048, 2048, device=dev)),
+                                    st.strided(a), st.strided(b)))
+    finally:
+        st.set_config(matmul_precision=old)
+    bounded("mul at 'default' 2048^2", got, config.bf16_matmul_reference(a, b),
+            _bf16_bound(a, b))
+
+    a = randn(4000, 4000)
+    want = (a + a.T) / 2
+    for what, call in (("symmetrize(x, 256)", lambda: st.symmetrize(a, 256)),
+                       ("symmetrize(x, tile=64)", lambda: st.symmetrize(a, tile=64))):
+        got = call()
+        print(f"[16 precision] {what} 4000^2 == (x + x.T) / 2 bit for bit: "
+              f"{torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{what} differs from (x + x.T) / 2")
+
+    proc = subprocess.run([sys.executable, "-m", "strided_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=400)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"[16 precision] python -m strided_tpu_torch.bench exit {proc.returncode}; its "
+          f"stderr:")
+    for line in proc.stderr.strip().splitlines()[-40:]:
+        print(f"    {line}")
+    print(f"[16 precision] its last line: {last}")
+    head = json.loads(last) if last.startswith("{") else {}
+    if proc.returncode != 0 or sorted(head) != ["metric", "unit", "value", "vs_baseline"]:
+        raise RuntimeError("python -m strided_tpu_torch.bench failed or printed no headline")
+    print(f"[16 precision] {time.perf_counter() - t0:.1f} s")
 
 
 def wide_body(a, b):
@@ -1235,8 +1369,17 @@ def linalg_phase(dev, card) -> None:
     got = mul(st.strided(a16), st.strided(b16), c16, alpha=alpha, beta=beta)
     if got.dtype != torch.bfloat16:
         raise RuntimeError(f"bf16 mul returned {got.dtype}")
-    check("mul bf16 8192^2 (f32 product, one rounding)", got,
-          ieee(lambda: (alpha * (a16.float() @ b16.float()) + beta * c16).bfloat16())())
+    # bf16 operands run natively (the single-pass product): the plain f32
+    # product of the same values within the summation-order bound, then one
+    # rounding to bf16 (half an ulp, 2^-9 relative)
+    want = alpha * config.bf16_matmul_reference(a16, b16) + beta * c16
+    e = (got.float() - want).abs()
+    limit = abs(alpha) * _bf16_bound(a16, b16) + 2.0 ** -9 * want.abs()
+    print(f"[10 linalg] mul bf16 8192^2 ({config.BF16_ROUTE}, one rounding): |got - plain| "
+          f"{e.max().item():.3e}, worst share of its bound {(e / limit).max().item():.3f}")
+    if not (e <= limit).all():
+        raise RuntimeError("bf16 mul off the plain single-pass product past its bound")
+    del want, e, limit
     v = st.strided(a)
     le.LAST_EXPR_DISPATCH = ""
     got = st.materialize(st.axpby(0.5, st.transpose(v), 0.5, v))

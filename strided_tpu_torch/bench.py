@@ -15,14 +15,27 @@ graph). ``rotating_ms`` times an engine call on inputs that rotate through
 copies larger than 4x the card's L2, so that no size measures L2-resident
 reruns (the benchmark scripts in ``benchmarks/``).
 
-    python -m strided_tpu_torch.bench      # gate, solves/s, device profile,
-                                           # Riccati and iLQR accuracy, rollouts
+    python -m strided_tpu_torch.bench
+
+runs :func:`main`, the counterpart of ``bench.py::main``: two gates (the
+kernels against their plain versions on three cases, :func:`smoke`; the
+accuracy of the headline configuration, :func:`mpc_accuracy`), then the
+headline, the captured step's solves/s at batch 16384, and diagnostics on
+stderr: symmetrize's GB/s three ways at 8192^2 and the flagship at 4000^2,
+the bf16 matmul rate, the step's device profile, Riccati and iLQR accuracy
+and the rollouts. The last line of stdout is one JSON object
+(:func:`headline`). A failed gate raises and prints no headline; a failed
+diagnostic is printed and the script exits 1 after the JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import subprocess
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -37,7 +50,8 @@ __all__ = ["mpc_accuracy", "mpc_solves", "step_device_ms", "profile_step", "cuda
            "graph_ms", "l2_bytes", "rotation_count", "rotated", "rotating_ms", "rate_notes",
            "card_label", "device_profile", "print_profile", "plan_deviation",
            "matches_eager", "cartpole_cost", "rollout_problem", "rollout_times",
-           "ilqr_accuracy", "riccati_accuracy"]
+           "ilqr_accuracy", "riccati_accuracy", "headline", "smoke", "symmetrize_rates",
+           "flagship_rate", "bf16_rate", "main"]
 
 DT = 0.02
 ROLLOUT_DT = 0.01  # bench.py::bench_rollouts
@@ -99,10 +113,15 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 
 
 # NVIDIA H100 SXM data sheet: the L2 size (used where the card does not
-# report its own), the HBM3 rate and FP32 off the tensor cores.
+# report its own), the HBM3 rate, FP32 off the tensor cores and dense bf16
+# on them.
 L2_BYTES_ASSUMED = 50 * 1024 * 1024
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+# BASELINE.md: the rate the workload asks of the whole system (the
+# 12-state, horizon-50 quadrotor MPC), a requirement and no measurement.
+BASELINE_SOLVES_PER_S = 10_000
 
 
 def l2_bytes() -> tuple:
@@ -449,14 +468,248 @@ def riccati_accuracy(device="cuda", N: int = 50):
     return float(np.max(np.abs(K32 - K64))), float(np.max(np.abs(K64)))
 
 
+def headline(solves_per_s: float) -> dict:
+    """The headline line's object: the captured step's solves/s and its
+    ratio to ``BASELINE_SOLVES_PER_S``."""
+    return {"metric": "quadrotor MPC solves/s/chip (12-state, N=50, condensed QP, ADMM-6 "
+                      "rho=8, f32, batch 16384, captured step)",
+            "value": solves_per_s, "unit": "solves/s/chip",
+            "vs_baseline": solves_per_s / BASELINE_SOLVES_PER_S}
+
+
+def _launched(module, call):
+    """``(result, launches)``: ``call()``'s result and the launches it added
+    to ``module.LAUNCHES``."""
+    before = module.LAUNCHES
+    out = call()
+    torch.cuda.synchronize()
+    return out, module.LAUNCHES - before
+
+
+def smoke(device="cuda") -> list:
+    """The kernels against their plain versions on ``bench.py::bench_smoke``'s
+    three cases, on the card, the gates lowered: a transpose copy through K4
+    (512x384 f32), the int32 initop reduction ``3*old + sum over axis 0``
+    through K4 (512x256), and ``symmetrize(b, tile=256)`` through K2 (1024^2
+    f32), each exact and each launching its kernel. Returns the cases'
+    names; raises on a mismatch or a kernel not launched."""
+    from . import config
+    from .core import executor_cuda, kernels_special, mapreduce, view
+    from .core.regularize import materialize
+
+    old = config.get_config()
+    checks = []
+    try:
+        config.set_config(min_kernel_elements=1024, map_min_elements=1024)
+        a = torch.as_tensor(np.random.default_rng(7).standard_normal((512, 384)),
+                            dtype=torch.float32, device=device)
+        out = view.strided(torch.empty(384, 512, device=device))
+        got, n = _launched(executor_cuda, lambda: materialize(
+            mapreduce.permutedims_into(out, view.strided(a), (1, 0))))
+        if n < 1 or not torch.equal(got, a.T):
+            raise RuntimeError(f"smoke: K4 transpose copy launched {n}, equal "
+                               f"{torch.equal(got, a.T)}")
+        checks.append("scrambled-map")
+
+        rng = np.random.default_rng(8)
+        x = torch.as_tensor(rng.integers(-9, 9, (512, 256)), dtype=torch.int32, device=device)
+        old_out = torch.as_tensor(rng.integers(-9, 9, (1, 256)), dtype=torch.int32,
+                                  device=device)
+        config.set_config(kernel_reductions=True)
+        ov = view.broadcast_to(view.strided(old_out), (512, 256))
+        res, n = _launched(executor_cuda, lambda: mapreduce.mapreducedim_into(
+            lambda t: t, torch.add, lambda o: 3 * o, ov, view.strided(x)))
+        want = 3 * old_out + x.sum(0, keepdim=True, dtype=torch.int32)
+        if n < 1 or not torch.equal(res.parent.reshape(1, 256), want):
+            raise RuntimeError(f"smoke: K4 initop reduction launched {n}, mismatch")
+        checks.append("initop-reduce")
+
+        b = torch.as_tensor(np.random.default_rng(9).standard_normal((1024, 1024)),
+                            dtype=torch.float32, device=device)
+        got, n = _launched(kernels_special, lambda: kernels_special.symmetrize(b, tile=256))
+        if n != 1 or not torch.equal(got, (b + b.T) * 0.5):
+            raise RuntimeError(f"smoke: K2 symmetrize launched {n}, mismatch")
+        checks.append("symmetrize")
+    finally:
+        config.set_config(**{f: getattr(old, f) for f in old.__dataclass_fields__})
+    return checks
+
+
+def _gbs(n: int, ms: float) -> float:
+    """Symmetrize's rate: one read and one write of an f32 n x n matrix."""
+    return 2 * n * n * 4 / (ms * 1e-3) / 1e9
+
+
+def symmetrize_rates(device="cuda", n: int = 8192) -> dict:
+    """``bench.py::bench_symmetrize_bandwidth`` on the card: GB/s of
+    ``symmetrize(x, tile=512)`` (K2 directly), of the flagship expression
+    ``(v + transpose(v)) * 0.5`` through the pattern dispatch, and of the
+    same expression on the generic engine (``expr_pattern_dispatch`` off),
+    each through :func:`rotating_ms` (eager and device). The dispatch of
+    each expression is checked."""
+    from . import config
+    from .api import to_array
+    from .core import lazy_expr
+    from .core.kernels_special import symmetrize
+    from .core.view import strided, transpose
+
+    x = torch.randn(n, n, device=device, generator=torch.Generator(device).manual_seed(1))
+    inputs = rotated(x, l2_bytes()[0])
+
+    def engine(t):
+        v = strided(t)
+        return to_array((v + transpose(v)) * 0.5)
+
+    def timed(fn, route):
+        lazy_expr.LAST_EXPR_DISPATCH = ""
+        fn(x)
+        if route is not None and (lazy_expr.LAST_EXPR_DISPATCH == "pair-kernel") != route:
+            raise RuntimeError(f"symmetrize {n}^2: dispatch {lazy_expr.LAST_EXPR_DISPATCH!r}")
+        row = rotating_ms(fn, inputs)
+        return {"eager_gbs": _gbs(n, row["eager_ms"]), "device_gbs": _gbs(n, row["device_ms"])}
+
+    rates = {"kernel": timed(lambda t: symmetrize(t, tile=512), None),
+             "flagship": timed(engine, True)}
+    old = config.get_config().expr_pattern_dispatch
+    try:
+        config.set_config(expr_pattern_dispatch=False)
+        rates["generic"] = timed(engine, False)
+    finally:
+        config.set_config(expr_pattern_dispatch=old)
+    return rates
+
+
+def flagship_rate(device="cuda", n: int = 4000) -> dict:
+    """``bench.py::bench_symmetrize_flagship_size`` on the card: at the
+    reference's literal 4000^2, ``(v + transpose(v)) / 2`` must dispatch to
+    K2 ("pair-kernel") and equal ``(x + x.T) / 2`` bit for bit; then its
+    GB/s through :func:`rotating_ms`."""
+    from .api import to_array
+    from .core import lazy_expr
+    from .core.view import strided, transpose
+
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal((n, n)), dtype=torch.float32,
+                        device=device)
+
+    def engine(t):
+        v = strided(t)
+        return to_array((v + transpose(v)) / 2)
+
+    lazy_expr.LAST_EXPR_DISPATCH = ""
+    got = engine(x)
+    if lazy_expr.LAST_EXPR_DISPATCH != "pair-kernel":
+        raise RuntimeError(f"4000^2 flagship took {lazy_expr.LAST_EXPR_DISPATCH!r}, "
+                           "not the pair kernel")
+    if not torch.equal(got, (x + x.T) / 2):
+        raise RuntimeError("4000^2 flagship differs from (x + x.T) / 2")
+    row = rotating_ms(engine, rotated(x, l2_bytes()[0]))
+    return {"eager_gbs": _gbs(n, row["eager_ms"]), "device_gbs": _gbs(n, row["device_ms"])}
+
+
+def bf16_rate(device="cuda", d: int = 4096, reps: int = 50) -> dict:
+    """``bench.py::bench_bf16_mfu`` on the card: a chain of bf16 products at
+    d^3, ``y = (x @ y) * (1/64)``, TFLOP/s (2 d^3 a call) eagerly
+    (:func:`cuda_ms`) and as device time (:func:`graph_ms`). ``x`` is 64
+    times a random orthogonal matrix (entries about N(0, 1) at d = 4096),
+    so the chain keeps ``y``'s scale for any number of calls; the
+    reference's ``(x @ x) * (1/64)`` squares its spectrum each call and
+    overflows within a few dozen."""
+    gen = torch.Generator(device).manual_seed(6)
+    q = torch.linalg.qr(torch.randn(d, d, device=device, generator=gen))[0]
+    x = (q * 64.0).to(torch.bfloat16)
+    state = [torch.randn(d, d, device=device, generator=gen).to(torch.bfloat16)]
+
+    def step():
+        state[0] = (x @ state[0]) * (1.0 / 64.0)
+
+    eager = cuda_ms(step, reps=reps)
+    dev = graph_ms(step, reps=reps, replays=3)
+    if not torch.isfinite(state[0]).all():
+        raise RuntimeError("bf16 chain produced non-finite values")
+    tf = lambda ms: 2 * d ** 3 / (ms * 1e-3) / 1e12  # noqa: E731
+    return {"eager_tflops": tf(eager), "device_tflops": tf(dev)}
+
+
+def _diagnostics(card: str) -> list:
+    """Run each diagnostic, printing its line or its failure (with the
+    traceback) on stderr; returns the names of those that failed."""
+    failed = []
+
+    def run(name, fn):
+        try:
+            fn()
+        except Exception:  # a failed diagnostic is reported, and the rest still run
+            print(f"[bench] diagnostic {name} failed:\n{traceback.format_exc()}", flush=True)
+            failed.append(name)
+
+    rates = {}
+
+    def sym():
+        r = rates["sym"] = symmetrize_rates()
+        print(f"[bench] symmetrize 8192^2 f32, GB/s eager/device: K2 symmetrize(x, tile=512) "
+              f"{r['kernel']['eager_gbs']:.1f}/{r['kernel']['device_gbs']:.1f}, flagship "
+              f"(v + transpose(v)) * 0.5 via the pattern dispatch "
+              f"{r['flagship']['eager_gbs']:.1f}/{r['flagship']['device_gbs']:.1f}, generic "
+              f"engine {r['generic']['eager_gbs']:.1f}/{r['generic']['device_gbs']:.1f} [{card}]")
+
+    def flagship():
+        r = flagship_rate()
+        print(f"[bench] symmetrize at the reference's flagship size 4000^2: pair-kernel, bit "
+              f"for bit against (x + x.T) / 2; {r['eager_gbs']:.1f}/{r['device_gbs']:.1f} GB/s "
+              f"eager/device [{card}]")
+
+    def bf16():
+        r = bf16_rate()
+        peak = BF16_TENSOR_OPS_PER_S / 1e12
+        print(f"[bench] bf16 matmul 4096^3 chained: {r['eager_tflops']:.1f}/"
+              f"{r['device_tflops']:.1f} TFLOP/s eager/device = {r['device_tflops'] / peak:.1%} "
+              f"of {peak:.0f} TFLOP/s (H100 SXM data sheet, dense bf16) [{card}]")
+        if "sym" in rates:
+            gbs = rates["sym"]["flagship"]["device_gbs"]
+            print(f"[bench] efficiency: symmetrize flagship {gbs:.0f}/"
+                  f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s = {gbs / (HBM_BYTES_PER_S / 1e9):.1%} of "
+                  f"HBM3 (data sheet) [{card}]")
+
+    def riccati():
+        dK, K = riccati_accuracy("cuda")
+        print(f"[bench] Riccati N=50: max |dK| {dK:.3e} (max |K| {K:.4f}), f32 card vs f64 CPU")
+
+    def ilqr_line():
+        du, u, c32, c64 = ilqr_accuracy("cuda")
+        print(f"[bench] iLQR cartpole T=40: max |du| {du:.3e} (max |u| {u:.4f}), cost "
+              f"{c32:.6f} vs {c64:.6f}")
+
+    for name, fn in (("symmetrize", sym), ("flagship", flagship), ("bf16", bf16),
+                     ("profile", lambda: profile_step("cuda")), ("riccati", riccati),
+                     ("ilqr", ilqr_line), ("rollouts", lambda: rollout_times("cuda"))):
+        run(name, fn)
+    return failed
+
+
+def main(argv=None) -> int:
+    """Gates, headline, diagnostics (see the module docstring). Everything
+    but the last line goes to stderr; returns 1 when a diagnostic failed."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("strided_tpu_torch.bench measures the card; no CUDA device found")
+    card = card_label()
+    with contextlib.redirect_stdout(sys.stderr):
+        print(f"[bench] {card}")
+        print(f"[bench] smoke: ok ({', '.join(smoke())})")
+        first, plan, uscale = mpc_accuracy("cuda")
+        print(f"[bench] accuracy at the operating point (ADMM-6 rho=8 f32, captured plan, vs "
+              f"the f64 oracle, input scale {uscale:.2f}): first {first:.3e} (gate 1e-4), plan "
+              f"{plan:.3e} (gate 0.15)")
+        if not (first < 1e-4 and plan < 0.15):
+            raise RuntimeError(f"accuracy gate failed: first {first:.3e}, plan {plan:.3e}; "
+                               "no headline")
+        row = mpc_solves("cuda")
+        failed = _diagnostics(card)
+    print(json.dumps(headline(row["captured_solves_per_s"])), flush=True)
+    if failed:
+        print(f"[bench] diagnostics failed: {', '.join(failed)}", file=sys.stderr)
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
-    first, plan, _ = mpc_accuracy("cuda")
-    print(f"accuracy gate (captured plan): first {first:.3e} (< 1e-4), plan {plan:.3e} (< 0.15)")
-    if not (first < 1e-4 and plan < 0.15):
-        raise SystemExit("accuracy gate failed")
-    profile_step("cuda")
-    dK, K = riccati_accuracy("cuda")
-    print(f"Riccati N=50: max |dK| {dK:.3e} (max |K| {K:.4f}), f32 card vs f64 CPU")
-    du, u, c32, c64 = ilqr_accuracy("cuda")
-    print(f"iLQR cartpole T=40: max |du| {du:.3e} (max |u| {u:.4f}), cost {c32:.6f} vs {c64:.6f}")
-    rollout_times("cuda")
+    sys.exit(main())

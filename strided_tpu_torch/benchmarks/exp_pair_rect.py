@@ -128,7 +128,7 @@ def variants(n: int):
     """``{name: (fn(x, out), want(x, out), bytes)}``."""
     from ..core.kernels_special import TILE, symmetrize
 
-    V = {"square_k2": (lambda x, o: symmetrize(x, 0.5), lambda x, o: sym_reference(x),
+    V = {"square_k2": (lambda x, o: symmetrize(x, alpha=0.5), lambda x, o: sym_reference(x),
                        _square_bytes(n, TILE))}
     for T in TILES:
         V[f"square_pair_{T}"] = (lambda x, o, T=T: pair_tiles(x, T), lambda x, o: sym_reference(x),

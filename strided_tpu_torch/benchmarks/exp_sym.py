@@ -172,7 +172,7 @@ def variants():
         V[f"t2d_rect_{th}x{tw}"] = (functools.partial(transpose_tiles, th=th, tw=tw),
                                     transpose_reference)
     # K2 writes its own new output, which is copied into ``out`` when one is given
-    V["prod_kernel"] = (lambda x, out=None: into(out, symmetrize(x, 0.5)), sym_reference)
+    V["prod_kernel"] = (lambda x, out=None: into(out, symmetrize(x, alpha=0.5)), sym_reference)
     return V
 
 

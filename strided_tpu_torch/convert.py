@@ -27,7 +27,8 @@ COST_ARRAYS = ("Q", "R", "Qf", "x_goal")
 def linear_mpc_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> LinearMPC:
     """``d`` maps the names in ``QP_ARRAYS`` and ``MPC_ARRAYS`` to arrays,
     and ``rho``, ``N``, ``n``, ``m``, ``use_chol``, ``admm_iters`` (and
-    optionally ``constrained``, default True) to scalars. Arrays are copied into
+    optionally ``constrained``, default True, and ``admm_coarse_iters``,
+    default 0) to scalars. Arrays are copied into
     contiguous tensors of ``dtype`` on ``device``."""
     to = lambda k: torch.tensor(np.asarray(d[k]), dtype=dtype, device=device)
     qp = CondensedQP(
@@ -40,6 +41,7 @@ def linear_mpc_from_numpy(d: dict, device="cuda", dtype=torch.float32) -> Linear
         **{k: to(k) for k in MPC_ARRAYS},
         admm_iters=int(d["admm_iters"]),
         constrained=bool(d.get("constrained", True)),
+        admm_coarse_iters=int(d.get("admm_coarse_iters", 0)),
     )
 
 

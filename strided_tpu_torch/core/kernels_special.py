@@ -116,13 +116,21 @@ _SCALE_MODE = {None: 0, "mul": 1, "div": 2}
 
 
 def pair_axpby(a: torch.Tensor, c: torch.Tensor = None, *, alpha: float = 1.0,
-               beta: float = 1.0, scale_mode=None, scale: float = 1.0,
+               beta: float = 1.0, scale_mode=None, scale: float = 1.0, tile: int = None,
                plain_first: bool = True) -> torch.Tensor:
     """``ep(alpha*a + beta*c.T)`` for square ``a`` (``c`` defaults to ``a``:
     the two-pass same-buffer kernel). CUDA tensors launch K2 and must be
     contiguous f32/bf16 of one shape and dtype; CPU tensors take
-    :func:`pair_reference`."""
+    :func:`pair_reference`.
+
+    ``tile``: the reference's tile edge, None or a positive int. K2 has one
+    edge (``TILE``) and runs at it whatever ``tile`` names; the values do
+    not depend on the tile. The reference's own refusals of an edge (not a
+    multiple of 128, or past the matrix) send it to the plain expression,
+    which computes the same values."""
     global LAUNCHES
+    if tile is not None and (isinstance(tile, bool) or not isinstance(tile, int) or tile < 1):
+        raise ValueError(f"pair_axpby: tile must be None or a positive int, got {tile!r}")
     kw = dict(alpha=alpha, beta=beta, scale_mode=scale_mode, scale=scale,
               plain_first=plain_first)
     cc = a if c is None else c
@@ -156,11 +164,12 @@ def pair_axpby(a: torch.Tensor, c: torch.Tensor = None, *, alpha: float = 1.0,
     return out
 
 
-def symmetrize(a: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
-    """``(a + a.T) * alpha`` through K2 (the reference's flagship)."""
+def symmetrize(a: torch.Tensor, tile: int = None, alpha: float = 0.5) -> torch.Tensor:
+    """``(a + a.T) * alpha`` through K2 (the reference's flagship); ``tile``
+    as :func:`pair_axpby` takes it."""
     if alpha == 1.0:
-        return pair_axpby(a)
-    return pair_axpby(a, scale_mode="mul", scale=alpha)
+        return pair_axpby(a, tile=tile)
+    return pair_axpby(a, scale_mode="mul", scale=alpha, tile=tile)
 
 
 # ---------------------------------------------------------------------------

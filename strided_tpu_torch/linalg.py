@@ -27,7 +27,7 @@ import numbers
 
 import torch
 
-from .config import get_config, matmul_precision_scope
+from .config import PRECISIONS, get_config, matmul as _matmul_at, precision_mode, single_pass
 from .core.view import StridedView, StridedLayoutError, held_device, strided
 from .core.regularize import materialize, operand, scatter_into
 from .core.mapreduce import fused_mapreduce
@@ -145,6 +145,18 @@ def axpby(alpha, x, beta, y) -> StridedView:
 # ---------------------------------------------------------------------------
 
 
+def _precision(dtype=None) -> str:
+    """The precision name of a vendor product, as the reference maps
+    ``Config.matmul_precision`` to ``lax.Precision``: bf16 operands always
+    run natively ("default": bf16 products with f32 accumulation lose
+    nothing); otherwise the configured name, and a name outside
+    ``PRECISIONS`` falls back to "highest" instead of raising."""
+    if dtype == torch.bfloat16:
+        return "default"
+    name = get_config().matmul_precision
+    return name if name in PRECISIONS else "highest"
+
+
 def _blas_eligible(*dtypes) -> bool:
     """Equal floating or complex dtypes take the vendor matmul; exact and
     mixed dtypes the generic path (exactness kept)."""
@@ -174,16 +186,17 @@ def mul(C, A, B, alpha=1, beta=0) -> StridedView:
     return _mul_generic(C, A, B, alpha, beta)
 
 
-@matmul_precision_scope
 def _mul_blas(C, A, B, alpha, beta) -> StridedView:
     """The vendor path, with the reference's accumulator rule: the product
     is taken in ``promote(C.dtype, f32)`` for real floating types (bf16
     operands are exact in f32, so this is bf16 products with f32
     accumulation), the epilogue applied there and the result rounded to
     ``C.dtype`` once. ``beta * old`` keeps ``C``'s dtype, as the reference's
-    weakly typed scalar product does. f32 stays IEEE FP32 (no TF32)."""
+    weakly typed scalar product does. The product runs at :func:`_precision`
+    (``config.matmul``)."""
     acc = torch.promote_types(C.dtype, torch.float32) if C.dtype.is_floating_point else C.dtype
-    res = torch.matmul(operand(A).to(acc), operand(B).to(acc))
+    a, b = operand(A), operand(B)
+    res = _matmul_at(a.to(acc), b.to(acc), _precision(torch.promote_types(a.dtype, b.dtype)))
     if not _is_static_one(alpha):
         res = alpha * res
     if not _is_static_zero(beta):
@@ -218,14 +231,23 @@ def _mul_generic(C, A, B, alpha, beta) -> StridedView:
     return StridedView(res.parent, C.shape, C.strides, C.offset, C.conj)
 
 
-@matmul_precision_scope
 def contract(subscripts: str, *operands, alpha=1) -> torch.Tensor:
     """Tensor contraction (einsum) over lazy strided-view operands, in their
-    promoted dtype, f32 in IEEE FP32."""
+    promoted dtype, at :func:`_precision` of their common dtype (the
+    configured name when they differ). At "default" f32 operands on the
+    card are rounded to bf16 and contracted in IEEE FP32: the single-pass
+    product's values (``config.bf16_matmul_reference``)."""
     dev = held_device(*operands)
     arrays = [operand(strided(o, dev)) for o in operands]
-    rdt = functools.reduce(torch.promote_types, [a.dtype for a in arrays])
-    out = torch.einsum(subscripts, *[a.to(rdt) for a in arrays])
+    dtypes = {a.dtype for a in arrays}
+    rdt = functools.reduce(torch.promote_types, dtypes)
+    name = _precision(dtypes.pop() if len(dtypes) == 1 else None)
+    arrays = [a.to(rdt) for a in arrays]
+    if single_pass(name, *arrays):
+        arrays = [a.to(torch.bfloat16).float() for a in arrays]
+        name = "highest"
+    with precision_mode(name):
+        out = torch.einsum(subscripts, *arrays)
     if not _is_static_one(alpha):
         out = alpha * out
     return out

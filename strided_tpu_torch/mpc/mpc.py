@@ -34,6 +34,9 @@ class LinearMPC:
     u_max: torch.Tensor
     admm_iters: int = 20
     constrained: bool = True
+    # the first admm_coarse_iters ADMM iterations take single-pass bf16
+    # products ("default"), the rest the configured precision (qp_solve)
+    admm_coarse_iters: int = 0
 
     def control(self, x, x_ref=None):
         """First-stage input for current state ``x`` ``(*batch, n)``, and
@@ -42,7 +45,8 @@ class LinearMPC:
         ``x_ref``: optional target state (defaults to the equilibrium)."""
         dx = x - (self.x_eq if x_ref is None else x_ref)
         if self.constrained:
-            U = qp_solve(self.qp, dx, self.u_min, self.u_max, self.admm_iters)
+            U = qp_solve(self.qp, dx, self.u_min, self.u_max, self.admm_iters,
+                         coarse_iters=self.admm_coarse_iters)
         else:
             U = qp_solve_unconstrained(self.qp, dx)
         return U[..., 0, :] + self.u_eq, U
@@ -65,6 +69,7 @@ def make_hover_mpc(
     u_max=None,
     admm_iters: int = 20,
     rho: float = 1.0,
+    admm_coarse_iters: int = 0,
 ) -> LinearMPC:
     """Linearize ``model`` at (x_eq, u_eq) and build the controller; all
     tensors keep the dtype and device of ``x_eq``/the linearization."""
@@ -80,6 +85,7 @@ def make_hover_mpc(
         u_max=as_a(u_max) if u_max is not None else big,
         admm_iters=admm_iters,
         constrained=u_min is not None or u_max is not None,
+        admm_coarse_iters=admm_coarse_iters,
     )
 
 

@@ -9,7 +9,9 @@ substituting it into the quadratic cost gives the dense input-space QP
 ``build_condensed`` forms every static matrix once, in f64 numpy.
 ``qp_solve`` handles box input constraints with over-relaxed ADMM at a fixed
 iteration count, batched over scenarios; on f32 CUDA tensors its iterations
-run in the fused-ADMM kernel (``fused_admm.py``).
+run in the fused-ADMM kernel (``fused_admm.py``), unless the first
+``coarse_iters`` of them are asked to run at "default" (single-pass bf16
+products, ``config.matmul``), which the kernel does not do.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import get_config, matmul_precision_scope
+from ..config import get_config, matmul, matmul_precision_scope
 from . import fused_admm as _fa
 
 __all__ = ["CondensedQP", "build_condensed", "qp_solve", "qp_solve_unconstrained"]
@@ -104,7 +106,7 @@ def build_condensed(A, B, Q, R, QN, N: int, rho: float = 1.0) -> CondensedQP:
 def qp_solve_unconstrained(qp: CondensedQP, x0: torch.Tensor) -> torch.Tensor:
     """U* = -H^{-1} M x0 via the precomputed gain. x0 ``(*batch, n)`` ->
     U ``(*batch, N, m)``."""
-    U = -x0 @ qp.K_lqr.T
+    U = matmul(-x0, qp.K_lqr.T)
     return U.reshape(*x0.shape[:-1], qp.N, qp.m)
 
 
@@ -142,22 +144,33 @@ def qp_solve(
     u_max: torch.Tensor,
     iters: int = 20,
     alpha: float = 1.6,
+    coarse_iters: int = 0,
 ) -> torch.Tensor:
     """Box-constrained condensed QP via over-relaxed ADMM, fixed ``iters``.
 
     x0 ``(*batch, n)``; u_min/u_max ``(m,)`` bounds (applied per stage).
     Returns U ``(*batch, N, m)``. ``g``, the warm start and every iteration's
-    product run under :func:`matmul_precision_scope`: ADMM converges to the
-    fixed point of the *computed* g, so a reduced-precision ``g = M x0``
-    biases every iterate."""
-    g = x0 @ qp.M.T  # (*batch, N*m)
+    product run at the configured precision (:func:`matmul_precision_scope`,
+    ``config.matmul``): ADMM converges to the fixed point of the *computed*
+    g, so a reduced-precision ``g = M x0`` biases every iterate.
+
+    ``coarse_iters`` (clipped to ``[0, iters]``): the first ``coarse_iters``
+    iterations take their product at "default" (single-pass bf16 on the
+    card; IEEE FP32 on the CPU) and the rest at the configured precision.
+    An opt-in trade of accuracy for fewer product passes, as in the
+    reference: the accurate tail does not absorb the coarse phase's bias,
+    so the 1e-4 first-input gate fails for any useful split. The fused
+    kernel runs only when ``coarse_iters`` is 0. The Cholesky fallback's
+    triangular solves run in IEEE FP32 in either phase."""
+    g = matmul(x0, qp.M.T)  # (*batch, N*m)
     lo = u_min.repeat(qp.N)
     hi = u_max.repeat(qp.N)
-    z = torch.minimum(torch.maximum(-x0 @ qp.K_lqr.T, lo), hi)
+    z = torch.minimum(torch.maximum(matmul(-x0, qp.K_lqr.T), lo), hi)
     D = z.shape[-1]
     g2 = g.reshape(-1, D)
     z2 = z.reshape(-1, D)
-    if _fused_admm_eligible(qp, z2):
+    coarse = max(0, min(int(coarse_iters), int(iters)))
+    if coarse == 0 and _fused_admm_eligible(qp, z2):
         zf = _fa.fused_admm(
             g2.contiguous(), z2.contiguous(), qp.solver.contiguous(),
             lo.contiguous(), hi.contiguous(),
@@ -165,12 +178,12 @@ def qp_solve(
         )
         return zf.reshape(*x0.shape[:-1], qp.N, qp.m)
     y = torch.zeros_like(z)
-    for _ in range(iters):
+    for k in range(iters):
         rhs = qp.rho * (z - y) - g
         if qp.use_chol:
             u = _chol_solve(qp.solver, rhs)
         else:
-            u = rhs @ qp.solver
+            u = matmul(rhs, qp.solver, "default" if k < coarse else None)
         u_rel = alpha * u + (1 - alpha) * z
         z_new = torch.minimum(torch.maximum(u_rel + y, lo), hi)
         y = y + u_rel - z_new

@@ -57,7 +57,7 @@ def _register(cls, static) -> None:
 
 
 _register(CondensedQP, ("rho", "N", "n", "m", "use_chol"))
-_register(LinearMPC, ("admm_iters", "constrained"))
+_register(LinearMPC, ("admm_iters", "constrained", "admm_coarse_iters"))
 
 
 def _dtype_name(dtype) -> str:
