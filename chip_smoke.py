@@ -185,7 +185,15 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     ``symmetrize(x, tile=64)`` equal to ``(x + x.T) / 2`` at 4000^2 bit for
     bit; ``python -m strided_tpu_torch.bench`` in a process of its own
     (exit 0, its last line a JSON object with ``metric``, ``value``,
-    ``unit``, ``vs_baseline``, printed here).
+    ``unit``, ``vs_baseline``, printed here);
+17. the port's spans (``utils/profiling.py``), in a process of its own
+    (``python3 chip_smoke.py --tracing-phase``; this process's profiler
+    stops recording kernels after phases 5-14's profiles): a span's host
+    cost with tracing off and on, net of the empty loop; the captured step at batch 16384 with tracing off
+    (no marker in a profiled replay) and on (a capture of its own; each of
+    ``qp.solve``'s and ``model.step``'s two markers once a replay; equal
+    to the unmarked step bit for bit); both graphs' device time in turns;
+    no marker in a graph the caller captures itself; the spans' totals.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
 JSON object describing the twelve kernels (each with its time, its plain
@@ -329,6 +337,7 @@ def main() -> None:
     slice_c_phase(dev, card)
     gates_phase(dev, card)
     precision_phase(dev, card)
+    tracing_process()
 
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
@@ -2142,10 +2151,154 @@ def gates_phase(dev, card) -> None:
     print(f"[15 gates] {time.perf_counter() - t0:.1f} s")
 
 
+def _kernel_names(fn) -> list:
+    """The device kernels one call of ``fn`` ran, in order, from a profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+            if e.device_type == DeviceType.CUDA]
+
+
+def _ns_per_span(annotate, n: int = 1_000_000) -> tuple:
+    """(ns one span costs, net of the loop; ns an iteration of the loop
+    that enters it; ns an iteration of the same loop without it)."""
+    t = time.perf_counter_ns()
+    for _ in range(n):
+        with annotate("capture.replay"):
+            pass
+    with_span = (time.perf_counter_ns() - t) / n
+    t = time.perf_counter_ns()
+    for _ in range(n):
+        pass
+    loop = (time.perf_counter_ns() - t) / n
+    return with_span - loop, with_span, loop
+
+
+def tracing_process() -> None:
+    """Phase 17 in a process of its own (``python3 chip_smoke.py
+    --tracing-phase``), its output printed here; raises when it fails."""
+    import os
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tracing-phase"],
+                          capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="")
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 17 exited {proc.returncode}: {proc.stderr[-3000:]}")
+
+
+def tracing_phase(dev, card) -> None:
+    """Phase 17: the port's spans (``utils/profiling.py``). A span's host
+    cost with tracing off and on; the captured MPC step at batch 16384
+    with tracing off (no marker in a profiled replay), then on (a capture
+    of its own, ``qp.solve`` and ``model.step`` each between their two
+    markers once a replay, equal to the unmarked step bit for bit); the
+    markers' device time, both graphs in turns; a graph the caller
+    captures itself, with tracing on, holds no marker; the totals."""
+    from strided_tpu_torch import capture as cap
+    from strided_tpu_torch.entry import make_controller, make_step
+    from strided_tpu_torch.mpc.qp import qp_solve
+    from strided_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    off = _ns_per_span(profiling.annotate)
+    profiling.enable()
+    on = _ns_per_span(profiling.annotate)
+    profiling.disable()
+    profiling.reset()
+    print(f"[17 tracing] a span, host ns net of the loop (the loop with it, without it): off "
+          f"{off[0]:.1f} ({off[1]:.1f}, {off[2]:.1f}), on {on[0]:.1f} ({on[1]:.1f}, "
+          f"{on[2]:.1f}); torch {torch.__version__} [{card}]")
+
+    model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
+    step = make_step(model, ctrl, 0.02)
+    x = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (16384, 12)),
+                        dtype=torch.float32, device=dev)
+    captures = cap.CAPTURES
+    plain = step(x)
+    names_off = _kernel_names(lambda: step(x))
+    profiling.enable()
+    try:
+        marked = step(x)
+        names_on = _kernel_names(lambda: step(x))
+        ids = {v: k for k, v in profiling.sections().items()}
+        caller = torch.cuda.CUDAGraph()
+        xq = (x - ctrl.x_eq).contiguous()
+        with cap.disable_capture():
+            qp_solve(ctrl.qp, xq, ctrl.u_min, ctrl.u_max, ctrl.admm_iters)
+            torch.cuda.synchronize()
+            with torch.cuda.graph(caller, capture_error_mode="thread_local"):
+                qp_solve(ctrl.qp, xq, ctrl.u_min, ctrl.u_max, ctrl.admm_iters)
+        names_caller = _kernel_names(caller.replay)
+        for _ in range(20):
+            step(x)
+        torch.cuda.synchronize()
+        totals = profiling.totals()
+    finally:
+        profiling.disable()
+    markers = [n for n in names_on if "strided_section_marker" in n]
+    want = [f"strided_section_marker<{ids.get(s)}, {e}>" for s in ("qp.solve", "model.step")
+            for e in (0, 1)]
+    print(f"[17 tracing] captures {cap.CAPTURES - captures} (off, on); kernels a replay: off "
+          f"{len(names_off)}, on {len(names_on)}; markers on: {markers}; sections "
+          f"{profiling.sections()}; caller's graph kernels {len(names_caller)}, markers "
+          f"{sum('strided_section_marker' in n for n in names_caller)}")
+    if cap.CAPTURES != captures + 2:
+        raise RuntimeError("turning tracing on did not capture anew")
+    if any("strided_section_marker" in n for n in names_off + names_caller):
+        raise RuntimeError("a marker in a graph captured with tracing off or by the caller")
+    if len(markers) != 4 or not all(any(w in n for n in markers) for w in want):
+        raise RuntimeError(f"expected {want} once each in a traced replay, got {markers}")
+    if len(names_on) != len(names_off) + 4 or not torch.equal(plain, marked):
+        raise RuntimeError("the traced step is not the untraced one plus four markers")
+    for name in ("capture.replay", "capture.miss", "capture.signature", "capture.launch",
+                 "capture.record", "qp.solve", "model.step"):
+        t = totals.get(name)
+        said = "none" if t is None else (
+            f"{t['count']} calls, {t['total_ns'] / t['count'] / 1e3:.2f} us a call, self "
+            f"{t['self_ns'] / t['count'] / 1e3:.2f}, parents {t['parents']}")
+        print(f"[17 tracing] {name}: {said}")
+    if totals["capture.replay"]["count"] < 20 or "capture.replay" not in \
+            totals["capture.launch"]["parents"]:
+        raise RuntimeError(f"the replay spans are not as documented: {totals}")
+
+    graphs = {}
+    for traced in (False, True):
+        if traced:
+            profiling.enable()
+        key, _ = cap.signature((x,), {})
+        graphs[traced] = step.cache.get(key)[0]
+        profiling.disable()
+    ms = {False: [], True: []}
+    for traced in (False, True, True, False):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        graphs[traced].replay()
+        start.record()
+        for _ in range(200):
+            graphs[traced].replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms[traced].append(start.elapsed_time(end) / 200)
+    print(f"[17 tracing] step device ms a replay, in turns: unmarked {ms[False]}, marked "
+          f"{ms[True]} [{card}]")
+    profiling.reset()
+    print(f"[17 tracing] {time.perf_counter() - t0:.1f} s")
+
+
 if __name__ == "__main__":
     import sys
 
     if sys.argv[1:2] == ["--slice-c-rank"]:
         slice_c_rank(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--tracing-phase"]:
+        from strided_tpu_torch.bench import card_label
+
+        tracing_phase("cuda", card_label())
     else:
         main()

@@ -15,8 +15,9 @@ each scalar, string, dtype, device or tuple of them by value; every other
 argument (a controller, a model, a cost) by identity, held through a weak
 reference, so that an entry dies with its object and a reused ``id`` finds
 nothing; the whole ``config.get_config()``, since ``qp_solve`` reads
-``fused_admm`` while the call is captured; and the f32 matmul mode, which
-capture freezes. The tensors inside an object are read where they lie: the
+``fused_admm`` while the call is captured; the f32 matmul mode, which
+capture freezes; and whether tracing is on, which decides the graph's
+section markers. The tensors inside an object are read where they lie: the
 graph holds their addresses, as a jitted closure holds its constants.
 
 There is no fallback. On a CUDA tensor a capture that fails raises: a host
@@ -46,6 +47,21 @@ included) and ``LAST_CAPTURE_MS`` is the host time of the last capture and
 its instantiation. A kernel's own launch count (``fused_admm.LAUNCHES``)
 and the collectives of ``parallel.COLLECTIVES`` count host calls: the
 warm-up's and the capture's, and no replay.
+
+What a replay shows: a profiler sees ``cudaGraphLaunch`` on the host and
+the graph's kernels on the card, and none of the host spans that ran while
+it was captured. The call's host side is spans of its own
+(``utils/profiling.py``): ``capture.replay`` from the key to the return,
+with ``capture.signature`` (the key and the lookup) and ``capture.launch``
+(the copies into the static buffers and the replay) inside it and the
+output clones its self time; a call that finds no entry counts its key and
+lookup as ``capture.miss`` instead, and its warm-up and capture as
+``capture.record``. With tracing on (``profiling.enable``) a capture also
+puts each span entered inside it between two marker kernels, so a profiled
+replay shows, for instance, ``qp.solve``'s and ``model.step``'s kernels
+between their markers. The tracing switch is part of the signature: a
+graph captured with tracing off has no markers, and turning tracing on
+captures anew.
 """
 
 from __future__ import annotations
@@ -58,6 +74,8 @@ import weakref
 import torch
 
 from .config import get_config
+from .utils import profiling
+from .utils.profiling import annotate
 
 __all__ = ["capture", "disable_capture", "capturing", "recorded", "signature", "Cache", "CAPTURES",
            "REPLAYS", "LAST_CAPTURE_MS"]
@@ -121,7 +139,8 @@ def signature(args: tuple, kwargs: dict):
            tuple((k, _arg_key(v, objects)) for k, v in sorted(kwargs.items())),
            get_config(),
            torch.get_float32_matmul_precision(),
-           torch.backends.cuda.matmul.allow_tf32)
+           torch.backends.cuda.matmul.allow_tf32,
+           profiling.enabled())
     return key, objects
 
 
@@ -192,12 +211,26 @@ def _record(fn, args, kwargs, dev):
     pool = next(iter(live)).pool() if live else torch.cuda.graph_pool_handle()
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"), \
+            profiling.own_capture():
         outputs = fn(*s_args, **s_kwargs)
     LAST_CAPTURE_MS = (time.perf_counter() - t0) * 1e3
     live.add(graph)
     _clone(outputs)  # the output's structure is checked before the entry is kept
     return graph, _tensors(s_args, s_kwargs), outputs
+
+
+def _launch(entry, tensors):
+    """Copy the call's tensors into the entry's static buffers and replay
+    its graph; returns the graph's outputs."""
+    global REPLAYS
+    graph, inputs, outputs = entry
+    with annotate("capture.launch"):
+        for buf, a in zip(inputs, tensors):
+            buf.copy_(a)
+        graph.replay()
+    REPLAYS += 1
+    return outputs
 
 
 def capture(fn):
@@ -210,25 +243,25 @@ def capture(fn):
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        global CAPTURES, REPLAYS
+        global CAPTURES
         tensors = _tensors(args, kwargs)
         cuda = [a for a in tensors if a.is_cuda]
         if _eager_depth or not cuda or torch.cuda.is_current_stream_capturing():
             return fn(*args, **kwargs)
-        key, objects = signature(args, kwargs)
-        entry = cache.get(key)
         dev = cuda[0].device
         with torch.cuda.device(dev):
-            if entry is None:
+            with annotate("capture.replay") as span:
+                with annotate("capture.signature"):
+                    key, objects = signature(args, kwargs)
+                    entry = cache.get(key)
+                if entry is not None:
+                    return _clone(_launch(entry, tensors))
+                profiling.rename(span, "capture.miss")
+            with annotate("capture.record"):
                 entry = _record(fn, args, kwargs, dev)
-                cache.put(key, objects, entry)
-                CAPTURES += 1
-            graph, inputs, outputs = entry
-            for buf, a in zip(inputs, tensors):
-                buf.copy_(a)
-            graph.replay()
-            REPLAYS += 1
-            return _clone(outputs)
+            cache.put(key, objects, entry)
+            CAPTURES += 1
+            return _clone(_launch(entry, tensors))
 
     wrapped.cache = cache
     return wrapped

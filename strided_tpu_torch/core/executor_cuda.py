@@ -36,6 +36,7 @@ from . import ewise, planner
 from .regularize import decompose, Decomposition
 from .view import StridedView
 from ..config import get_config
+from ..utils.profiling import annotated
 
 __all__ = ["try_fused_mapreduce", "make_plan", "tile_executor", "tile_executor_reference",
            "LAST_PLAN", "LAUNCHES", "MAP_PATHS"]
@@ -125,6 +126,7 @@ def try_fused_mapreduce(
     return StridedView(new_parent, out.shape, out.strides, out.offset, out.conj)
 
 
+@annotated("engine.plan")
 def make_plan(f, op, initop, dims, out, ins) -> Optional[Plan]:
     """The kernel's plan for ``fused_mapreduce``'s arguments, or None where
     the call is not eligible (see the module docstring). Sets LAST_PLAN."""
@@ -317,6 +319,7 @@ def tile_executor_reference(plan: Plan, out_parent: torch.Tensor,
     return new
 
 
+@annotated("engine.launch")
 def tile_executor(plan: Plan, out_parent: torch.Tensor,
                   in_parents: Sequence[torch.Tensor]) -> torch.Tensor:
     """Run a planned map / map-reduce; returns the new output parent (a

@@ -27,6 +27,7 @@ import operator
 import torch
 
 from ..config import get_config
+from ..utils.profiling import annotated
 from . import ewise, stream_reduce as sr
 from .regularize import decompose
 
@@ -115,6 +116,7 @@ def _kernel_fn():
 _SCALE_MODE = {None: 0, "mul": 1, "div": 2}
 
 
+@annotated("engine.launch")
 def pair_axpby(a: torch.Tensor, c: torch.Tensor = None, *, alpha: float = 1.0,
                beta: float = 1.0, scale_mode=None, scale: float = 1.0, tile: int = None,
                plain_first: bool = True) -> torch.Tensor:

@@ -28,6 +28,7 @@ from .regularize import materialize, scatter_into
 from .lazy_expr import as_expr_parts, identity_f
 from .ewise import result_dtype
 from .kernels_special import pure
+from ..utils.profiling import annotated
 
 _dispatch_log = logging.getLogger("strided_tpu_torch.dispatch")
 
@@ -170,6 +171,7 @@ def _squeeze_view(out: StridedView, red: Tuple[int, ...]) -> StridedView:
     return StridedView(out.parent, shape, out.strides, out.offset, out.conj)
 
 
+@annotated("engine.plain")
 def _plain_fused_mapreduce(f, op, initop, dims, out, ins, red) -> StridedView:
     vals = f(*[materialize(v) for v in ins]) if ins else f()
     vals = torch.as_tensor(vals, device=out.device)

@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from . import ewise
+from ..utils.profiling import annotated
 
 __all__ = ["stream_reduce", "stream_reduce_reference", "row_chunks", "vector_width", "split",
            "kernel_shape", "path_name", "LAUNCHES", "PATHS", "RED_SUM", "RED_PROD", "RED_MIN",
@@ -155,6 +156,7 @@ def _tickets(device: torch.device, stream: int) -> torch.Tensor:
     return _TICKETS[key]
 
 
+@annotated("engine.launch")
 def stream_reduce(a: torch.Tensor, prog: ewise.Program, red: int) -> torch.Tensor:
     """Fold ``prog(a)`` over the rows of the (N, M) tensor ``a`` with ``red``
     (RED_SUM, RED_PROD, RED_MIN or RED_MAX)."""

@@ -13,6 +13,8 @@ from typing import Callable, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
+from ..utils.profiling import annotated
+
 __all__ = ["Model", "rk4_step", "linearize"]
 
 
@@ -36,6 +38,7 @@ class Model:
     input_dim: int
     dynamics: Callable  # (x, u) -> xdot
 
+    @annotated("model.step")
     def step(self, x, u, dt):
         return rk4_step(self.dynamics, x, u, dt)
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import get_config, matmul, matmul_precision_scope
+from ..utils.profiling import annotated
 from . import fused_admm as _fa
 
 __all__ = ["CondensedQP", "build_condensed", "qp_solve", "qp_solve_unconstrained"]
@@ -137,6 +138,7 @@ def _fused_admm_eligible(qp: CondensedQP, z2: torch.Tensor) -> bool:
 
 
 @matmul_precision_scope
+@annotated("qp.solve")
 def qp_solve(
     qp: CondensedQP,
     x0: torch.Tensor,
