@@ -10,9 +10,10 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc, and
    prints ptxas's registers, stack frame and spills of every K1, K3, K4,
    transpose-pair probe and rank-4 reversal kernel; K1's 64-row instance (the main path's), every instance
-   of K3's program kernel and every ``rev4_tiles`` and ``pair_tiles``
-   instance must not spill, and every ``rev4_tiles``, ``rev4_mma`` and
-   ``pair_tiles`` instance must be built;
+   of K3's program kernel, of K4's multi-axis map (``tile_box_v``) and
+   every ``rev4_tiles`` and ``pair_tiles`` instance must not spill, and
+   every ``rev4_tiles``, ``rev4_mma``, ``pair_tiles`` and ``tile_box_v``
+   instance must be built;
 3. kernel vs plain: the fused-ADMM kernel against its plain PyTorch version
    on the same inputs, and both against the same iterations in f64: the
    main-path QP (D=200) at B = 16384, at 64 * #SMs +- 1 (one row past or
@@ -66,7 +67,11 @@ Drives the port's main path, one closed-loop step of the scenario-batched
    fold on f32, bf16 and int32 rows that are and are not whole 16-byte
    runs, and every program kernel: bodies of 1, 2, 3 and 5 registers on
    f32, bf16 and int32 leaves, float- and int-valued, every fold, on 8
-   columns a thread and on one (ragged rows, an unaligned base);
+   columns a thread and on one (ragged rows, an unaligned base); K4's
+   multi-axis map (``multi_axis_checks``, limit 0): the README's
+   four-permute sum at 96^4 (f32, bf16, int32), four inputs at 37x96x45x70,
+   two- and three-input rank-3 maps, one with a broadcast row, and a rank-5
+   map with four staging dims, which stays on ``tile_t2d_v``;
 9. engine times: each kernel's wrapper against its plain version, in turns
    (kernel, plain, plain, kernel; with the one PyTorch call that computes
    the same function inside the turns where there is one), with GB/s; K2
@@ -78,7 +83,9 @@ Drives the port's main path, one closed-loop step of the scenario-batched
    ladder (0, 1, 2, 3, 9), four of those programs once more on one column
    a thread (an unaligned base), and K4's maps on the staged 8192^2 layout
    (the instruction ladder, bf16, int32 ``where``, the scalar interpreter),
-   each checked against its plain version first, and timed eagerly (every
+   and the four-permute sum at 96^4 through the multi-axis map against its
+   plain version, the PyTorch expression and ``tile_t2d_v``
+   (``multi_axis_times``), each checked against its plain version first, and timed eagerly (every
    ``ms`` of the JSON line is an eager time) and as device time alone
    (``bench.graph_ms``, CUDA graphs; the ``device_*`` keys);
 10. linalg at full size: ``mul`` f32 8192^2 through cuBLAS (equal to the
@@ -282,6 +289,7 @@ def main() -> None:
                            f"and no spills, got {k3_programs}")
     reversal_instances(report)
     pair_instances(report)
+    box_instances(report)
 
     rho, alpha, iters = 8.0, 1.6, 6
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
@@ -481,6 +489,154 @@ def pair_instances(report) -> None:
         if len(found) != 1 or found[0]:
             raise RuntimeError(f"ptxas: {key} is missing or spills (spill stores {found})")
     print(f"[2 build] exp_sym: {len(want)} pair_tiles instances built, no spill")
+
+
+def box_instances(report) -> None:
+    """Phase 2's check of K4's multi-axis map (``tile_box_v``): its two
+    instances (three staging dims, and two) are built and neither spills;
+    their registers and stack are in ptxas's lines."""
+    built = {name: (regs, spill) for src, name, regs, spill in report
+             if src == "tile_executor" and "tile_box_v" in name}
+    want = [f"tile_box_vILi{nu}ELi{lx}EE" for nu, lx in ((3, 3), (2, 6))]
+    for key in want:
+        found = [v for name, v in built.items() if key in name]
+        if len(found) != 1 or found[0][1]:
+            raise RuntimeError(f"ptxas: {key} is missing or spills ({found})")
+    print(f"[2 build] tile_executor: {len(want)} tile_box_v instances built, no spill "
+          f"(registers {sorted(v[0] for name, v in built.items() if any(k in name for k in want))})")
+
+
+P2, P3, P4 = (1, 2, 3, 0), (2, 3, 0, 1), (3, 0, 1, 2)  # the README's four-permute sum
+
+
+def _permuted_views(shape, perms, dtype, dev, gen):
+    """One contiguous parent a permutation, each permuted to ``shape``:
+    input k is unit-stride along the dim d where ``perms[k][d]`` is the
+    parent's last. Returns (views, parents)."""
+    import strided_tpu_torch as st
+
+    views, parents = [], []
+    for perm in perms:
+        pshape = [0] * len(shape)
+        for d, j in enumerate(perm):
+            pshape[j] = shape[d]
+        t = torch.randn(pshape, device=dev, generator=gen) * 4
+        t = (t * 10).int() if dtype == torch.int32 else t.to(dtype)
+        views.append(st.permutedims(st.strided(t), perm))
+        parents.append(t)
+    return views, parents
+
+
+def multi_axis_checks(dev, gen) -> None:
+    """Phase 8, K4's multi-axis map against its plain version, limit 0: the
+    README's four-permute sum at 96^4 through the engine (f32, bf16, int32,
+    also against the PyTorch expression) and four distinct inputs at
+    37x96x45x70 through the planner; a three-input rank-3 map at 200x130x150
+    and 101x67x93 (two staging dims), a two-input one (a body of two
+    registers), and the three inputs with a broadcast row as a fourth
+    (read directly); a rank-5 map with four staging dims, which
+    stays on tile_t2d_v. Each with the path ``MAP_PATHS`` records."""
+    import strided_tpu_torch as st
+    from strided_tpu_torch.core import executor_cuda as ec
+
+    old_cfg = st.get_config()
+    st.set_config(map_min_elements=1, min_kernel_elements=1)
+    try:
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            (v, *_), (a, *_) = _permuted_views((96,) * 4, [(0, 1, 2, 3)], dt, dev, gen)
+            before = ec.MAP_PATHS["multi_axis"]
+            ec.LAST_PLAN.clear()
+            got = st.to_array(v + st.permutedims(v, P2) + st.permutedims(v, P3)
+                              + st.permutedims(v, P4))
+            want = a + a.permute(P2) + a.permute(P3) + a.permute(P4)
+            torch.cuda.synchronize()
+            e = _max_err(got, want)
+            ran = ec.MAP_PATHS["multi_axis"] - before
+            print(f"[8 multi-axis] four-permute sum 96^4 {dt}: staging "
+                  f"{ec.LAST_PLAN.get('staging')}, multi_axis x{ran}, "
+                  f"|kernel - torch| {e:.3e} (limit 0)")
+            if e != 0.0 or ran != 1 or ec.LAST_PLAN.get("staging") != (-1, 2, 1, 0):
+                raise RuntimeError(f"four-permute sum {dt}: off by {e:.3e} or not multi-axis")
+        four = [(0, 1, 2, 3), P2, P3, P4]
+        three = [(0, 1, 2), (1, 2, 0), (2, 0, 1)]
+        cases = [(f"four inputs 37x96x45x70 {dt}", (37, 96, 45, 70), four, dt, False, "multi_axis")
+                 for dt in (torch.float32, torch.bfloat16, torch.int32)]
+        cases += [(f"three inputs {'x'.join(map(str, sh))} f32", sh, three, torch.float32, False,
+                   "multi_axis") for sh in ((200, 130, 150), (101, 67, 93))]
+        cases += [("two inputs 101x67x93 f32", (101, 67, 93), three[1:], torch.float32, False,
+                   "multi_axis"),
+                  ("three inputs and a broadcast row 101x67x93 f32", (101, 67, 93), three,
+                   torch.float32, True, "multi_axis"),
+                  ("rank 5, four staging dims 12x10x9x11x13 f32", (12, 10, 9, 11, 13),
+                   [(4, 0, 1, 2, 3), (0, 4, 1, 2, 3), (0, 1, 4, 2, 3), (0, 1, 2, 4, 3)],
+                   torch.float32, False, "amortized")]
+        for name, shape, perms, dt, row, path in cases:
+            views, parents = _permuted_views(shape, perms, dt, dev, gen)
+            if row:
+                r = torch.randn(shape[-1], device=dev, generator=gen)
+                views.append(st.broadcast_to(st.strided(r.reshape((1,) * (len(shape) - 1) + (-1,))),
+                                             shape))
+                parents.append(r)
+            f = {2: lambda a, b: a * 3 - b, 3: lambda a, b, c: a + b + c,
+                 4: lambda a, b, c, d: a + b + c + d}[len(views)]
+            out = st.strided(torch.empty(shape, device=dev, dtype=dt))
+            plan = ec.make_plan(f, None, None, shape, out, views)
+            if plan is None:
+                raise RuntimeError(f"multi-axis {name}: the tile executor declined")
+            before = dict(ec.MAP_PATHS)
+            k = ec.tile_executor(plan, out.parent, parents)
+            p = ec.tile_executor_reference(plan, out.parent, parents)
+            torch.cuda.synchronize()
+            e = _max_err(k, p)
+            ran = [q for q in ec.MAP_PATHS if ec.MAP_PATHS[q] != before[q]]
+            print(f"[8 multi-axis] {name}: staging {plan.stage}, {ran}, "
+                  f"|kernel - plain| {e:.3e} (limit 0)")
+            if e != 0.0 or ran != [path]:
+                raise RuntimeError(f"multi-axis {name}: off by {e:.3e}, or path {ran} "
+                                   f"(expected {path})")
+    finally:
+        st.set_config(map_min_elements=old_cfg.map_min_elements,
+                      min_kernel_elements=old_cfg.min_kernel_elements)
+
+
+PERMUTE_SUM_T2D_MS = 3.04  # tile_t2d_v<4> a call in card_scale's profile before this map (PERF.md)
+
+
+def multi_axis_times(dev, gen, report) -> None:
+    """Phase 9, the README's four-permute sum at 96^4 through K4's
+    multi-axis map, called eagerly and as device time (CUDA graphs), in
+    turns with its plain version and the PyTorch expression; then the same
+    plan on tile_t2d_v (the staging cleared) against the multi-axis map.
+    Bounds: the needed bytes (A read once, the output written once) and four
+    reads of A and one write, the least a kernel reading each view once
+    moves."""
+    import dataclasses
+
+    import strided_tpu_torch as st
+    from strided_tpu_torch.core import executor_cuda as ec
+
+    for dt in (torch.float32, torch.bfloat16):
+        (v, *_), (a, *_) = _permuted_views((96,) * 4, [(0, 1, 2, 3)], dt, dev, gen)
+        views = [v, st.permutedims(v, P2), st.permutedims(v, P3), st.permutedims(v, P4)]
+        out = st.strided(torch.empty_like(a))
+        plan = ec.make_plan(lambda p, q, r, s: p + q + r + s, None, None, a.shape, out, views)
+        if plan is None or not plan.stage:
+            raise RuntimeError("four-permute sum: not a multi-axis plan")
+        old = dataclasses.replace(plan, stage=())
+        pars = [a] * 4
+        kernel = lambda: ec.tile_executor(plan, out.parent, pars)  # noqa: E731
+        plain = lambda: ec.tile_executor_reference(plan, out.parent, pars)  # noqa: E731
+        t2d = lambda: ec.tile_executor(old, out.parent, pars)  # noqa: E731
+        lib = lambda: a + a.permute(P2) + a.permute(P3) + a.permute(P4)  # noqa: E731
+        need, four = 2 * a.numel() * a.element_size(), 5 * a.numel() * a.element_size()
+        what = (f"tile_executor four-permute sum 96^4 {dt} [multi_axis], bound "
+                f"{bound(need)['bound_ms']:.4f} ms (needed bytes), {bound(four)['bound_ms']:.4f} ms "
+                f"(four reads, one write); tile_t2d_v<4> in card_scale {PERMUTE_SUM_T2D_MS} ms")
+        report(f"{what}, called eagerly", need, _turns(kernel, plain, reps=20, library=lib))
+        report(f"{what}, device time (CUDA graph)", need,
+               _turns(kernel, plain, reps=10, library=lib, graph=True))
+        report(f"four-permute sum 96^4 {dt}: multi_axis (kernel) against tile_t2d_v (plain), "
+               f"device time (CUDA graph)", need, _turns(kernel, t2d, reps=10, graph=True))
 
 
 def k1_times(dev, ctrl, rng, batch, card, *, rho, alpha, iters) -> dict:
@@ -998,6 +1154,7 @@ def engine_phases(dev, card):
             raise RuntimeError(f"{name} was not launched on the engine's main path")
 
     coverage_checks(dev, gen)
+    multi_axis_checks(dev, gen)
 
     # phase 9: each wrapper against its plain version, in turns
     def report(what, nbytes, times):
@@ -1022,6 +1179,7 @@ def engine_phases(dev, card):
                       reps=50))
     red_t, k3_cases = reduce_times(dev, gen, report)
     map_t, t_times = map_times(dev, gen, report, w)
+    multi_axis_times(dev, gen, report)
     vy = st.strided(y)
     ins4 = [st.permutedims(vy, perm)]
     plan4 = ec.make_plan(lambda t: t, None, None, out4.shape, out4, ins4)

@@ -45,11 +45,12 @@ _log = logging.getLogger("strided_tpu_torch.dispatch")
 
 LAUNCHES: int = 0
 # launches of a map by the kernel the launcher reports it ran: "amortized"
-# (the body fits ewise.CREG registers), "scalar" (a wider body) or "copy" (a
-# transposed copy)
-MAP_PATHS: dict = {"amortized": 0, "scalar": 0, "copy": 0}
-_MAP_PATH_NAMES = ("copy", "amortized", "scalar")  # csrc/tile_executor.cu: *path
+# (the body fits ewise.CREG registers), "scalar" (a wider body), "copy" (a
+# transposed copy) or "multi_axis" (inputs staged along several dims)
+MAP_PATHS: dict = {"amortized": 0, "scalar": 0, "copy": 0, "multi_axis": 0}
+_MAP_PATH_NAMES = ("copy", "amortized", "scalar", "multi_axis")  # csrc/tile_executor.cu: *path
 MAX_DIM = 5  # csrc/tile_executor.cu: TE_MAX_DIM
+MAX_STAGING_DIMS = 3  # csrc/tile_executor.cu: launch_multi_axis
 MAX_IN = ewise.MAX_IN
 _OK_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 RED_SUM, RED_PROD, RED_MIN, RED_MAX, RED_ALL, RED_ANY = range(6)  # EW_RED_*
@@ -109,6 +110,9 @@ class Plan:
     part_dtype: torch.dtype  # the folded values' type
     tdim: int = -1  # a map's shared-memory tiled dim, or -1
     tmask: int = 0  # inputs staged through the tiles (bit k: input k)
+    # each input's staging dim (-1: read directly) where the inputs stage
+    # along two or more dims, else (): the multi-axis kernel's plan
+    stage: Tuple[int, ...] = ()
 
 
 def try_fused_mapreduce(
@@ -216,26 +220,48 @@ def _plan(f, op, initop, dims, out, ins, cfg) -> Plan:
     if set(decs[0].real_axes) != {i for i in range(n_par) if dims_o[i] > 1}:
         _demote("the output does not own exactly the parallel dims")
 
-    tdim, tmask = _transpose_tiles(red, dims_o, strides_o)
+    tdim, tmask, stage = _staging(red, dims_o, strides_o)
     LAST_PLAN.update(dims=dims_o, n_par=n_par, real_axes=[d.real_axes for d in decs],
-                     reduction=red, body_ops=len(body.instrs), tiled_dim=tdim)
+                     reduction=red, body_ops=len(body.instrs), tiled_dim=tdim, staging=stage)
     return Plan(dims_o, n_par, strides_o[0], strides_o[1:], body, init, red, part_dtype,
-                tdim, tmask)
+                tdim, tmask, stage)
 
 
-def _transpose_tiles(red, dims, strides):
-    """For a map whose output is unit-stride along the last loop dim: the
-    dim along which some input is unit-stride instead, and the inputs that
-    read that way (they go through shared-memory tiles). (-1, 0) if none."""
+def _staging(red, dims, strides):
+    """For a map whose output is unit-stride along the last loop dim: each
+    input's unit-stride dim where that is another loop dim, then
+    ``(tdim, tmask, stage)``. ``tdim`` is the first input's such dim and
+    ``tmask`` the inputs that share it (tile_t2d_v stages them through its
+    tiles); ``(-1, 0, ())`` if no input has one. ``stage`` gives each input
+    its staging dim, or -1 for one read directly (unit-stride along the last
+    dim, no unit-stride dim, or a broadcast), where the staging dims number
+    2 to MAX_STAGING_DIMS (the multi-axis kernel), else ()."""
     last = len(dims) - 1
     if red is not None or last < 1 or strides[0][last] != 1:
-        return -1, 0
-    tdim = next((e for s in strides[1:] if s[last] != 1
-                 for e in range(last) if s[e] == 1 and dims[e] > 1), -1)
+        return -1, 0, ()
+    unit = []  # on the host path of every K4 call: plain loops
+    for s in strides[1:]:
+        e = -1
+        if s[last] != 1:
+            for d in range(last):
+                if s[d] == 1 and dims[d] > 1:
+                    e = d
+                    break
+        unit.append(e)
+    tdim = next((e for e in unit if e >= 0), -1)
     if tdim < 0:
-        return -1, 0
-    mask = sum(1 << k for k, s in enumerate(strides[1:]) if s[tdim] == 1 and s[last] != 1)
-    return tdim, mask
+        return -1, 0, ()
+    tmask = 0
+    stage, staged = [], set()
+    for k, (s, e) in enumerate(zip(strides[1:], unit)):
+        if e == tdim:
+            tmask |= 1 << k
+        if e >= 0 and 0 in s:
+            e = -1
+        stage.append(e)
+        if e >= 0:
+            staged.add(e)
+    return tdim, tmask, (tuple(stage) if 2 <= len(staged) <= MAX_STAGING_DIMS else ())
 
 
 # ---------------------------------------------------------------------------
@@ -256,9 +282,13 @@ class _CParams(ctypes.Structure):
                 ("part_type", ctypes.c_int32), ("tdim", ctypes.c_int32),
                 ("tmask", ctypes.c_int32), ("chunks", ctypes.c_int32),
                 ("x_lanes", ctypes.c_int32), ("compact", ctypes.c_int32),
+                ("stage", ctypes.c_int32 * MAX_IN),
                 ("scratch", ctypes.c_void_p),
                 ("out", _COperand), ("old", _COperand), ("ins", _COperand * MAX_IN),
                 ("body", ewise.CProgram), ("init", ewise.CProgram)]
+
+
+_NO_STAGE = (ctypes.c_int32 * MAX_IN)(*[-1] * MAX_IN)  # every input read directly
 
 
 def _c_operand(t: torch.Tensor, strides) -> _COperand:
@@ -342,6 +372,8 @@ def tile_executor(plan: Plan, out_parent: torch.Tensor,
     p.n_red = math.prod(plan.dims[plan.n_par:])
     p.part_type = ewise.TYPE_CODE[plan.part_dtype]
     p.tdim, p.tmask, p.chunks, p.x_lanes = plan.tdim, plan.tmask, 1, THREADS
+    p.stage = (ctypes.c_int32 * MAX_IN)(*plan.stage, *_NO_STAGE[len(plan.stage):]) if plan.stage \
+        else _NO_STAGE
     scratch = None
     if plan.red is not None and p.n_red > 1:
         p.x_lanes, p.chunks = reduction_split(p.n_out, p.n_red)

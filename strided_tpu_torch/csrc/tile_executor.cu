@@ -31,6 +31,25 @@
 // stores (tile_t2d_v, tile_map_v). A wider program runs the scalar
 // interpreter per element (tile_executor_t2d, and the map branch of
 // tile_executor_kernel).
+// tile_t2d_v stages only the inputs that are unit-stride along its one
+// tiled dim; every other input is read along dx with gaps between the
+// threads. Where the inputs are unit-stride along two or three distinct
+// dims other than dx (the README's A + permutedims(A,P2) + permutedims(A,P3)
+// + permutedims(A,P4): A along dx, the views along k, j and i), the
+// multi-axis form (tile_box_v) takes the map instead: a block owns a box of
+// 8 along dx and 8 along each staging dim (64 along dx for two), each
+// staged input is read along its own staging dim, 8 elements (a 32-byte
+// sector of f32) a run, into a slab of shared memory of its own (XOR
+// swizzled, no bank conflict either way; 32-bit words by cp.async), and
+// every thread reads its elements back in the output's order and runs the
+// program as tile_t2d_v does, in passes of 4. What bounds it: a run is a
+// sector, not a line, so 4 boxes along every box axis are consecutive
+// blocks (a line's four sectors are read while it is in L2), and the count
+// of 32-byte runs sets the time (bf16, half the bytes in the same runs,
+// takes as long as f32; PERF.md). Its budget is 64 registers and 48 KB of
+// slabs for three staged inputs at four blocks an SM; four staging dims
+// (a box of 8^5) do not fit, and stay on tile_t2d_v. The planner
+// (core/executor_cuda.py::_staging) chooses it from the strides alone.
 // For a reduction a block owns 32 output elements (1 below 32 outputs) and
 // splits the reduced extent over the rest of its 256 threads; where that
 // leaves the SMs idle the extent is also cut into chunks over blocks. Each
@@ -67,6 +86,7 @@ struct TeParams {
   int32_t chunks;  // a reduction's chunks of the reduced extent (> 1: partials in scratch)
   int32_t x_lanes;  // a reduction's outputs per block (1, 8 or 32)
   int32_t compact;  // a map whose body fits EW_CREG registers: the amortized kernels
+  int32_t stage[TE_MAX_IN];  // a map's staging dim of input k, or -1 (read directly); all -1: none
   EwVal* scratch;        // chunks * n_out partials
   TeOperand out, old;  // old: the output's previous values (reductions)
   TeOperand in[TE_MAX_IN];
@@ -445,10 +465,292 @@ __global__ void __launch_bounds__(TX * R2) tile_copy_t2d(const __grid_constant__
   }
 }
 
+// The multi-axis form (tile_box_v). A block owns a box of 2^LX elements
+// along dx, the output's unit-stride dim (box axis 0), and BE along each of
+// the NU staging dims (axes 1..NU, ascending loop dims); the other dims
+// index the boxes. An element of the box is numbered in the natural order
+// (axis 0 fastest, then 1, 2, ...); a thread owns elements t + 256 q.
+constexpr int LBE = 3, BE = 1 << LBE;  // 8 along a staging dim: 32 bytes of f32, one sector
+constexpr int BOX_BLOCKS = 4;  // blocks an SM: 64 registers, 48 KB of slabs for three inputs
+constexpr int LGROUP = 2;      // 4 boxes along every box axis are consecutive blocks
+constexpr int BOX_PASS = 4;    // elements a thread in each pass of the program
+
+template <int NU, int LX>
+struct Box {
+  static constexpr int NA = NU + 1;               // box axes
+  static constexpr int LB = LX + LBE * NU;        // log2 of the box's elements
+  static constexpr int PT = (1 << LB) / THREADS;  // elements a thread
+  __host__ __device__ static constexpr int width(int a) { return a == 0 ? LX : LBE; }
+  __host__ __device__ static constexpr int shift(int a) { return a == 0 ? 0 : LX + LBE * (a - 1); }
+};
+
+// The coordinates of element m of the order in which axis F comes first and
+// the others follow ascending (F = 0: the natural order).
+template <int NU, int LX, int F>
+__device__ __forceinline__ void box_coords(uint32_t m, uint32_t (&c)[NU + 1]) {
+  using B = Box<NU, LX>;
+  c[F] = m & ((1u << B::width(F)) - 1);
+  m >>= B::width(F);
+#pragma unroll
+  for (int a = 0; a <= NU; ++a) {
+    if (a == F) continue;
+    c[a] = m & ((1u << B::width(a)) - 1);
+    m >>= B::width(a);
+  }
+}
+
+// The slab word of the element at c: its natural number with bits 2-4
+// XORed by the XOR of its staging coordinates. So a warp's 32 stores (8
+// along one staging axis x 4 along dx) and its 32 loads (natural order)
+// each meet 32 banks. Linear in XOR: the word of c | c' (disjoint bits) is
+// the XOR of the two words, so a thread's words are its own XOR constants.
+template <int NU, int LX>
+__device__ __forceinline__ uint32_t slab_word(const uint32_t (&c)[NU + 1]) {
+  using B = Box<NU, LX>;
+  uint32_t n = 0, v = 0;
+#pragma unroll
+  for (int a = 0; a <= NU; ++a) {
+    n |= c[a] << B::shift(a);
+    if (a > 0) v ^= c[a];
+  }
+  return n ^ ((v & 7u) << 2);
+}
+
+// Phase 1 for one staged input: its box read along its own staging axis F
+// (8 consecutive elements, a sector of f32, per run; a warp reads 4 runs)
+// into its slab. 32-bit words go by cp.async, straight into the slab with
+// no register and every load in flight; bf16 values through registers, as
+// EwVals. base: the input's offset at the box's origin; lim: the box's
+// extent along each axis, clipped at the array's edge.
+template <int NU, int LX, int F>
+__device__ __forceinline__ void stage_box(const TeOperand& o, const int (&ad)[NU + 1],
+                                          int32_t base, const uint32_t (&lim)[NU + 1],
+                                          bool full, EwVal* slab) {
+  using B = Box<NU, LX>;
+  constexpr int PT = B::PT;
+  uint32_t ct[NU + 1];
+  box_coords<NU, LX, F>(threadIdx.x, ct);
+  int32_t s[NU + 1], at = base;
+#pragma unroll
+  for (int a = 0; a <= NU; ++a) {
+    s[a] = (int32_t)o.stride[ad[a]];
+    at += (int32_t)ct[a] * s[a];
+  }
+  const uint32_t wt = slab_word<NU, LX>(ct);
+  int32_t idx[PT];
+  uint32_t word[PT];
+  bool ok[PT];
+#pragma unroll
+  for (int q = 0; q < PT; ++q) {
+    uint32_t cq[NU + 1];
+    box_coords<NU, LX, F>((uint32_t)q * THREADS, cq);
+    bool in = true;
+    idx[q] = at;
+#pragma unroll
+    for (int a = 0; a <= NU; ++a) {
+      idx[q] += (int32_t)cq[a] * s[a];
+      in = in && (ct[a] | cq[a]) < lim[a];
+    }
+    ok[q] = full || in;
+    word[q] = wt ^ slab_word<NU, LX>(cq);
+  }
+  if (o.type != EW_BF16) {
+    const uint32_t at_slab = (uint32_t)__cvta_generic_to_shared(slab);
+#pragma unroll
+    for (int q = 0; q < PT; ++q)
+      if (ok[q])
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at_slab + 4 * word[q]),
+                     "l"((const int32_t*)o.ptr + idx[q]) : "memory");
+    return;
+  }
+  EwVal v[PT];
+  ew_load_v<PT>(o.ptr, idx, ok, o.type, v);
+#pragma unroll
+  for (int q = 0; q < PT; ++q)
+    if (ok[q]) slab[word[q]] = v[q];
+}
+
+// A map whose inputs are unit-stride along NU = 2 or 3 distinct loop dims
+// other than dx (p.stage). Phase 1: every staged input into its own slab
+// (stage_box), the box's 2^LB EwVals each. Phase 2, in passes of BOX_PASS
+// elements a thread (natural order, so a warp's 32 elements are 4 runs of
+// 8 along dx for LX = 3): the staged values from the slabs, the direct
+// inputs (unit-stride along dx, broadcast or with no unit-stride dim) from
+// memory, the program (ew_run_v), the stores. Offsets are 32-bit, as in
+// the other amortized kernels. The register file is EW_CREG wide whatever
+// the body's n_reg (the same program runs on any file that holds it), so
+// there is one instance a box shape.
+template <int NU, int LX>
+__global__ void __launch_bounds__(THREADS, BOX_BLOCKS) tile_box_v(const __grid_constant__ TeParams p) {
+  using B = Box<NU, LX>;
+  constexpr int NA = B::NA, PT = B::PT, EP = BOX_PASS, R = EW_CREG;
+  extern __shared__ EwVal slabs[];
+  const int dx = p.rank - 1;
+  uint32_t umask = 0;
+  for (int k = 0; k < p.n_in; ++k)
+    if (p.stage[k] >= 0) umask |= 1u << p.stage[k];
+  int ad[NA];  // the loop dim of each box axis
+  ad[0] = dx;
+  uint32_t m = umask;
+#pragma unroll
+  for (int a = 1; a < NA; ++a) {
+    ad[a] = __ffs(m) - 1;
+    m &= m - 1;
+  }
+  // the box: its place in its group (axis 0 fastest, then the staging axes
+  // from the innermost loop dim out), then the group's, then every other
+  // dim inner to outer. A group's 2^LGROUP boxes along each axis share the
+  // 128-byte lines of every operand, so the lines are whole while in L2.
+  uint32_t b = blockIdx.x >> (LGROUP * NA), lim[NA];
+  const uint32_t in_group = blockIdx.x & ((1u << (LGROUP * NA)) - 1);
+  bool full = true;
+  int32_t off[R], out_off = (int32_t)p.out.offset;
+#pragma unroll
+  for (int k = 0; k < R; ++k) off[k] = (int32_t)p.in[k].offset;
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    const int a = j == 0 ? 0 : NA - j;
+    const uint32_t n = (uint32_t)p.dims[ad[a]], nb = (n + (1u << B::width(a)) - 1) >> B::width(a);
+    const uint32_t ng = (nb + (1u << LGROUP) - 1) >> LGROUP;
+    const uint32_t box = ((b % ng) << LGROUP) | ((in_group >> (LGROUP * j)) & ((1u << LGROUP) - 1));
+    b /= ng;
+    if (box >= nb) return;  // past the edge: the last group along this axis is short
+    const uint32_t c = box << B::width(a);
+    lim[a] = min(1u << B::width(a), n - c);
+    full = full && lim[a] == 1u << B::width(a);
+#pragma unroll
+    for (int k = 0; k < R; ++k) off[k] += (int32_t)c * (int32_t)p.in[k].stride[ad[a]];
+    out_off += (int32_t)c * (int32_t)p.out.stride[ad[a]];
+  }
+  for (int d = dx - 1; d >= 0; --d) {
+    if ((umask >> d) & 1) continue;
+    const uint32_t dim = (uint32_t)p.dims[d], c = b % dim;
+    b /= dim;
+#pragma unroll
+    for (int k = 0; k < R; ++k) off[k] += (int32_t)c * (int32_t)p.in[k].stride[d];
+    out_off += (int32_t)c * (int32_t)p.out.stride[d];
+  }
+  uint32_t ct[NA];  // the thread's coordinates and slab word in the natural order
+  box_coords<NU, LX, 0>(threadIdx.x, ct);
+  const uint32_t wt = slab_word<NU, LX>(ct);
+  // phase 1
+  int slot = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (k >= p.n_in || p.stage[k] < 0) continue;
+    EwVal* slab = slabs + (slot++ << B::LB);
+    int f = 1;  // the box axis of input k's staging dim
+#pragma unroll
+    for (int a = 2; a < NA; ++a)
+      if (ad[a] == p.stage[k]) f = a;
+    if (f == 1) {
+      stage_box<NU, LX, 1>(p.in[k], ad, off[k], lim, full, slab);
+    } else if (f == 2) {
+      stage_box<NU, LX, 2>(p.in[k], ad, off[k], lim, full, slab);
+    } else {
+      if constexpr (NU >= 3) stage_box<NU, LX, 3>(p.in[k], ad, off[k], lim, full, slab);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // phase 2: the thread's parts of every offset, then PT / EP passes
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) off[k] += (int32_t)ct[a] * (int32_t)p.in[k].stride[ad[a]];
+    out_off += (int32_t)ct[a] * (int32_t)p.out.stride[ad[a]];
+  }
+#pragma unroll
+  for (int pass = 0; pass < PT / EP; ++pass) {
+    uint32_t cq[EP][NA];
+    bool ok[EP];
+#pragma unroll
+    for (int e = 0; e < EP; ++e) {
+      box_coords<NU, LX, 0>((uint32_t)(pass * EP + e) * THREADS, cq[e]);
+      bool in = true;
+#pragma unroll
+      for (int a = 0; a < NA; ++a) in = in && (ct[a] | cq[e][a]) < lim[a];
+      ok[e] = full || in;
+    }
+    EwVal r[R][EP];
+    int32_t idx[EP];
+    slot = 0;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (k >= p.n_in) continue;
+      if (p.stage[k] >= 0) {
+        const EwVal* slab = slabs + (slot++ << B::LB);
+#pragma unroll
+        for (int e = 0; e < EP; ++e)
+          if (ok[e]) r[k][e] = slab[wt ^ slab_word<NU, LX>(cq[e])];
+      } else {
+#pragma unroll
+        for (int e = 0; e < EP; ++e) {
+          idx[e] = off[k];
+#pragma unroll
+          for (int a = 0; a < NA; ++a) idx[e] += (int32_t)cq[e][a] * (int32_t)p.in[k].stride[ad[a]];
+        }
+        ew_load_v<EP>(p.in[k].ptr, idx, ok, p.in[k].type, r[k]);
+      }
+    }
+    ew_run_v(p.body, r);
+    EwVal v[EP];
+    ew_reg(r, p.body.out, v);
+#pragma unroll
+    for (int e = 0; e < EP; ++e) {
+      idx[e] = out_off;
+#pragma unroll
+      for (int a = 0; a < NA; ++a) idx[e] += (int32_t)cq[e][a] * (int32_t)p.out.stride[ad[a]];
+    }
+    ew_store_v<EP>((void*)p.out.ptr, idx, ok, p.out.type, v);
+  }
+}
+
+// Launch tile_box_v for the staging dims in umask (NU of them) with
+// n_staged slabs, in whole groups along every box axis.
+template <int NU, int LX>
+int launch_box(const TeParams* p, uint32_t umask, int n_staged, cudaStream_t s) {
+  using B = Box<NU, LX>;
+  static bool raised = false;  // once per instance and process
+  if (!raised) {
+    cudaError_t err = cudaFuncSetAttribute(tile_box_v<NU, LX>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (EW_CREG << B::LB) * (int)sizeof(EwVal));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(tile_box_v<NU, LX>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    raised = true;
+  }
+  const int dx = p->rank - 1;
+  const int64_t g = (1 << LGROUP) - 1;
+  int64_t blocks = ((((p->dims[dx] + (1 << LX) - 1) >> LX) + g) >> LGROUP) << LGROUP;
+  for (int d = 0; d < dx; ++d)
+    blocks *= (umask >> d) & 1 ? ((((p->dims[d] + BE - 1) / BE) + g) >> LGROUP) << LGROUP : p->dims[d];
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)n_staged << B::LB) * sizeof(EwVal);
+  tile_box_v<NU, LX><<<(unsigned)blocks, THREADS, smem, s>>>(*p);
+  return (int)cudaGetLastError();
+}
+
+// The multi-axis map: a box of 8 along dx and each of three staging dims
+// (8^4 = 4096 elements, 16 a thread), or of 64 along dx and 8 along each of
+// two. Four staging dims are refused (core/executor_cuda.py plans
+// them for tile_t2d_v): a box of 8^5 elements would leave the SM one block
+// of 32 elements a thread and 128 KB of slabs for each staged input.
+int launch_multi_axis(const TeParams* p, uint32_t umask, int n_staged, cudaStream_t s) {
+  const int nu = __builtin_popcount(umask);
+  if (nu == 3) return launch_box<3, 3>(p, umask, n_staged, s);
+  if (nu == 2) return launch_box<2, 6>(p, umask, n_staged, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // *path is set to the map kernel launched: 0 tile_copy_t2d, 1 the amortized
-// interpreter (tile_t2d_v, tile_map_v), 2 the scalar one; -1 a reduction.
+// interpreter (tile_t2d_v, tile_map_v), 2 the scalar one, 3 the multi-axis
+// form (tile_box_v); -1 a reduction.
 extern "C" int strided_tile_executor(const TeParams* p, void* stream, int* path) {
   *path = -1;
   if (p->rank < 1 || p->rank > TE_MAX_DIM || p->n_in < 0 || p->n_in > TE_MAX_IN ||
@@ -461,6 +763,17 @@ extern "C" int strided_tile_executor(const TeParams* p, void* stream, int* path)
                           ((p->dims[p->tdim] + TY - 1) / TY) * p->n_out /
                           (p->dims[p->rank - 1] * p->dims[p->tdim]);
     if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    uint32_t umask = 0;  // the staging dims
+    int n_staged = 0;
+    for (int k = 0; k < p->n_in; ++k) {
+      if (p->stage[k] < -1 || p->stage[k] >= p->rank - 1) return (int)cudaErrorInvalidValue;
+      if (p->stage[k] >= 0) umask |= 1u << p->stage[k], ++n_staged;
+    }
+    if (umask && p->compact) {
+      const int err = launch_multi_axis(p, umask, n_staged, (cudaStream_t)stream);
+      if (err == cudaSuccess) *path = 3;
+      return err;
+    }
     const bool copy = p->n_in == 1 && p->tmask == 1 && p->body.n_instr == 0 &&
                       p->in[0].type == p->out.type;
     if (copy) {

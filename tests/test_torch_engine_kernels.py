@@ -197,6 +197,138 @@ def test_tile_executor_scrambled_copy_matches_pallas():
     np.testing.assert_array_equal(got.numpy().reshape(384, 512), a.T)
 
 
+P2, P3, P4 = (1, 2, 3, 0), (2, 3, 0, 1), (3, 0, 1, 2)  # the README's four-permute sum
+ID3, ID4 = (0, 1, 2), (0, 1, 2, 3)
+
+
+def _operand(shape, kind, dtype=torch.float32, seed=0):
+    """An input view of ``shape``: a contiguous parent permuted by ``kind``
+    (unit-stride along the dim d where ``kind[d]`` is the parent's last), or
+    a broadcast ``"row"`` (unit-stride along the last dim) or ``"col"``
+    (along the first). Returns (view, parent)."""
+    rng = np.random.default_rng(seed)
+    if kind in ("row", "col"):
+        n = shape[-1] if kind == "row" else shape[0]
+        pshape = [1] * len(shape)
+        pshape[-1 if kind == "row" else 0] = n
+    else:
+        pshape = [0] * len(shape)
+        for d, j in enumerate(kind):
+            pshape[j] = shape[d]
+    a = rng.standard_normal(pshape) * 4
+    t = torch.from_numpy((a * 10).astype(np.int32) if dtype == torch.int32
+                         else a.astype(np.float32)).to(dtype)
+    v = tst.strided(t, device="cpu")
+    if kind in ("row", "col"):
+        return tst.broadcast_to(v, shape), t
+    return tst.permutedims(v, kind), t
+
+
+STAGING = {  # name: (shape, inputs, (tdim, tmask, stage))
+    "four-permute sum 8^4": ((8,) * 4, [ID4, P2, P3, P4], (2, 0b0010, (-1, 2, 1, 0))),
+    "four-permute sum 7^4, ragged": ((7,) * 4, [ID4, P2, P3, P4], (2, 0b0010, (-1, 2, 1, 0))),
+    "four-permute sum 13^4, ragged": ((13,) * 4, [ID4, P2, P3, P4], (2, 0b0010, (-1, 2, 1, 0))),
+    "four inputs 5x9x6x7": ((5, 9, 6, 7), [ID4, P2, P3, P4], (2, 0b0010, (-1, 2, 1, 0))),
+    "the three views staged, A last": ((6, 7, 5, 9), [P4, P3, P2, ID4], (0, 0b0001, (0, 1, 2, -1))),
+    "rank 3, A and two permutations": ((9, 12, 10), [ID3, (1, 2, 0), (2, 0, 1)],
+                                       (1, 0b010, (-1, 1, 0))),
+    "rank 3, two permutations": ((9, 12, 10), [(1, 2, 0), (2, 0, 1)], (1, 0b01, (1, 0))),
+    "rank 3 and a broadcast row": ((9, 12, 10), [ID3, (1, 2, 0), (2, 0, 1), "row"],
+                                   (1, 0b0010, (-1, 1, 0, -1))),
+    "a broadcast column and two permutations": ((9, 12, 10), ["col", (1, 2, 0), (2, 0, 1)],
+                                                (0, 0b101, (-1, 1, 0))),
+    "a broadcast column and one permutation: one staging dim": (
+        (9, 12, 10), ["col", (1, 2, 0)], (0, 0b01, ())),
+    "rank 5, four staging dims: tile_t2d_v": (
+        (4, 5, 3, 4, 6), [(4, 0, 1, 2, 3), (0, 4, 1, 2, 3), (0, 1, 4, 2, 3), (0, 1, 2, 4, 3)],
+        (0, 0b0001, ())),
+}
+
+
+@pytest.mark.parametrize("name", list(STAGING))
+def test_map_stages_each_input_along_its_own_unit_stride_dim(name):
+    """K4's plan of a map into a contiguous output: each input's staging dim
+    (its unit-stride loop dim, where that is not the output's) where two or
+    three distinct ones occur, -1 for an input read directly (unit-stride
+    along the output's dim, or a broadcast); otherwise no staging and
+    tile_t2d_v's single tiled dim and mask, as before the multi-axis
+    kernel. The plan's programs run exactly."""
+    shape, kinds, (tdim, tmask, stage) = STAGING[name]
+    views, parents = zip(*(_operand(shape, k, seed=j) for j, k in enumerate(kinds)))
+    f = {2: lambda a, b: a + b, 3: lambda a, b, c: a + b + c,
+         4: lambda a, b, c, d: a + b + c + d}[len(views)]
+    out = tst.strided(torch.zeros(shape))
+    plan = tec.make_plan(f, None, None, shape, out, list(views))
+    assert plan is not None and plan.dims == shape
+    assert (plan.tdim, plan.tmask, plan.stage) == (tdim, tmask, stage)
+    assert tec.LAST_PLAN["staging"] == stage and tec.LAST_PLAN["tiled_dim"] == tdim
+    got = tec.tile_executor(plan, out.parent, list(parents))
+    want = f(*(v.parent.as_strided(v.shape, v.strides, v.offset) for v in views))
+    assert torch.equal(got.reshape(shape), want)
+
+
+@pytest.mark.parametrize("n", [7, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_four_permute_sum_plan_is_exact(n, dtype):
+    """The README's ``A + permutedims(A,P2) + permutedims(A,P3) +
+    permutedims(A,P4)`` through the engine takes the multi-axis plan (A
+    read directly, the P2, P3 and P4 views staged along k, j and i), and its
+    plain version equals the PyTorch expression bit for bit."""
+    v, a = _operand((n,) * 4, ID4, dtype)
+    tec.LAST_PLAN.clear()
+    got = tst.to_array(v + tst.permutedims(v, P2) + tst.permutedims(v, P3) + tst.permutedims(v, P4))
+    assert tec.LAST_PLAN["staging"] == (-1, 2, 1, 0)
+    assert got.dtype == dtype
+    assert torch.equal(got, a + a.permute(P2) + a.permute(P3) + a.permute(P4))
+    out = tst.strided(torch.zeros((n,) * 4, dtype=dtype))
+    views = [v, tst.permutedims(v, P2), tst.permutedims(v, P3), tst.permutedims(v, P4)]
+    plan = tec.make_plan(lambda p, q, r, s: p + q + r + s, None, None, (n,) * 4, out, views)
+    ref = tec.tile_executor_reference(plan, out.parent, [a] * 4)
+    assert torch.equal(ref.reshape((n,) * 4), got)
+
+
+def _single_tile_plans():
+    a = torch.from_numpy(np.random.default_rng(9).standard_normal((512, 384)).astype(np.float32))
+    v = tst.strided(a, device="cpu")
+    w = tst.strided(torch.ones(384, 512), device="cpu")
+    r = tst.strided(torch.ones(6, 7, 8, 9), device="cpu")
+    rev = tuple(reversed(r.shape))
+    return {  # name: (f, shape, inputs, tdim, tmask)
+        "(384, 512) a.T": (lambda x: x, (384, 512), [tst.transpose(v)], 0, 1),
+        "3 * A'": (lambda x: 3.0 * x, (384, 512), [tst.transpose(v)], 0, 1),
+        "smap x*3 + y over (A', w)": (lambda x, y: x * 3 + y, (384, 512), [tst.transpose(v), w],
+                                      0, 1),
+        "rank-4 reversal": (lambda x: x, rev, [tst.permutedims(r, (3, 2, 1, 0))], 2, 1),
+    }
+
+
+@pytest.mark.parametrize("name", list(_single_tile_plans()))
+def test_single_staging_dim_keeps_the_tiled_plan(name):
+    """Maps whose staged inputs share one dim keep tile_t2d_v's and
+    tile_copy_t2d's plan: one tiled dim, its mask, no per-input staging."""
+    f, shape, ins, tdim, tmask = _single_tile_plans()[name]
+    plan = tec.make_plan(f, None, None, shape, tst.strided(torch.zeros(shape)), ins)
+    assert plan is not None and (plan.tdim, plan.tmask, plan.stage) == (tdim, tmask, ())
+
+
+def test_map_path_report_matches_the_cuda_source():
+    """The launcher's ``*path`` codes (csrc/tile_executor.cu) name the map
+    kernels of ``MAP_PATHS`` in order: the copy, the amortized and scalar
+    interpreters, the multi-axis form; the multi-axis launcher takes two and
+    three staging dims, ``MAX_STAGING_DIMS`` at most."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tec.__file__).parents[1] / "csrc" / "tile_executor.cu").read_text()
+    launcher = src[src.index('extern "C" int strided_tile_executor('):]
+    codes = sorted({int(c) for c in re.findall(r"\*path = (\d+);", launcher)})
+    assert codes == list(range(len(tec._MAP_PATH_NAMES)))
+    assert set(tec._MAP_PATH_NAMES) == set(tec.MAP_PATHS)
+    assert tec._MAP_PATH_NAMES[3] == "multi_axis"
+    multi = re.search(r"int launch_multi_axis\(.*?\n\}", src, re.S).group(0)
+    assert sorted(int(n) for n in re.findall(r"nu == (\d+)", multi)) == [2, tec.MAX_STAGING_DIMS]
+
+
 def test_tile_executor_initop_reduction_matches_pallas():
     """bench.py's initop check at (512, 256), int32: out = 3*old + sum(x, 0)."""
     rng = np.random.default_rng(8)
