@@ -9,11 +9,13 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 1. device: a CUDA device is required; prints its name and power limit;
 2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc, and
    prints ptxas's registers, stack frame and spills of every K1, K3, K4,
-   transpose-pair probe and rank-4 reversal kernel; K1's 64-row instance (the main path's), every instance
-   of K3's program kernel, of K4's multi-axis map (``tile_box_v``) and
+   transpose-pair probe, rank-4 reversal and plant kernel; K1's 64-row
+   instance (the main path's), every instance of K3's program kernel, of
+   K4's multi-axis map (``tile_box_v``) and
    every ``rev4_tiles`` and ``pair_tiles`` instance must not spill, and
    every ``rev4_tiles``, ``rev4_mma``, ``pair_tiles`` and ``tile_box_v``
-   instance must be built;
+   instance must be built; the plant kernel's f32 and f64 instances must be
+   built and not spill;
 3. kernel vs plain: the fused-ADMM kernel against its plain PyTorch version
    on the same inputs, and both against the same iterations in f64: the
    main-path QP (D=200) at B = 16384, at 64 * #SMs +- 1 (one row past or
@@ -28,10 +30,11 @@ Drives the port's main path, one closed-loop step of the scenario-batched
 5. main path: a 50-step closed loop at batch 16384 through
    ``strided_tpu_torch.entry.make_controller``, run captured (the whole loop
    one CUDA graph) and eagerly (``capture.disable_capture()``) on the same
-   state: the two must agree bit for bit; the eager loop must launch the
-   kernel once per step (a replay launches from the graph and counts
-   nothing), and a profiled replay must run ``fused_admm_kernel`` once per
-   step; the loop must stay finite, shrink the state, and agree with the
+   state: the two must agree bit for bit; the eager loop must launch K1
+   and the plant kernel once per step each (a replay launches from the
+   graph and counts nothing), and a profiled replay must run
+   ``fused_admm_kernel`` and ``quadrotor_rk4_kernel`` once per step each
+   (the plant's row of the JSON line gives that count a step); the loop must stay finite, shrink the state, and agree with the
    plain path, which must take an entry of its own (the config is in the
    key), after which the kernel's entry replays again, equal; a captured
    function that reads the host must raise, not run eagerly;
@@ -200,10 +203,29 @@ Drives the port's main path, one closed-loop step of the scenario-batched
     (no marker in a profiled replay) and on (a capture of its own; each of
     ``qp.solve``'s and ``model.step``'s two markers once a replay; equal
     to the unmarked step bit for bit); both graphs' device time in turns;
-    no marker in a graph the caller captures itself; the spans' totals.
+    no marker in a graph the caller captures itself; the spans' totals;
+18. the quadrotor's RK4 plant kernel (``models/quadrotor_rk4.py``), in a
+    process of its own (``python3 chip_smoke.py --plant-phase``):
+    ``make_controller``'s linearisation declining the kernel once
+    (``DECLINES``), the hover ``A`` and ``B`` equal to the eager plant's bit
+    for bit; the kernel against the eager step (``rk4_step(model.dynamics,
+    ...)``) in f32 at batch 1, 257, 16384 and (4, 64), at 4096 for another
+    body (m = 1.7, dt = 0.01), in f64 at 16384 and for the other body, and
+    at 16384 on strided operands (x through a row stride of 24, u as
+    rollout's slice ``us[..., t, :]``) in both dtypes, on random states with
+    large angles, every eighth pitch within 1e-7 of +-pi/2 (the clamp), each
+    element within ``quadrotor_rk4.TOLERANCE`` (1e-6 (|eager| + 1) in f32,
+    1e-13 in f64), with the widest gap in ulps and the share equal bit for
+    bit; the plant alone, kernel and eager, as device time through CUDA
+    graphs in turns; the captured step launching the kernel once at its
+    warm-up and once at its capture and never at a replay (``LAUNCHES``),
+    equal to its eager call bit for bit; the captured step's device
+    operations a replay with the kernel and with the eager plant (exactly
+    one plant kernel with the kernel plant, none with the eager one), and
+    each graph's time in turns.
 
 Any failure raises, so the exit code is non-zero. The last two lines are a
-JSON object describing the twelve kernels (each with its time, its plain
+JSON object describing the thirteen kernels (each with its time, its plain
 version's, its bound on an H100 SXM from NVIDIA's data sheet, and the time
 of one PyTorch call computing the same function where there is one), then
 ``{"ok": true, "device": ...}``.
@@ -290,6 +312,10 @@ def main() -> None:
     reversal_instances(report)
     pair_instances(report)
     box_instances(report)
+    plant_k = [spill for src, _name, _regs, spill in report if src == "quadrotor_rk4"]
+    if len(plant_k) != 2 or any(plant_k):
+        raise RuntimeError(f"ptxas: expected the plant kernel's f32 and f64 instances without "
+                           f"spills, got spill stores {plant_k}")
 
     rho, alpha, iters = 8.0, 1.6, 6
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
@@ -333,7 +359,7 @@ def main() -> None:
         check(*_random_inputs(rng, B, D, dev))
     check(*_random_inputs(rng, 65, 200, dev, z0_scale=2.0))
 
-    launches = main_path_phase(dev, card)
+    launches, plant_launches = main_path_phase(dev, card)
     k1 = k1_times(dev, ctrl, rng, 16384, card, rho=rho, alpha=alpha, iters=iters)
 
     wide_qp_check(dev)
@@ -346,6 +372,7 @@ def main() -> None:
     gates_phase(dev, card)
     precision_phase(dev, card)
     tracing_process()
+    plant = {**plant_process(), "launches": plant_launches}
 
     print(json.dumps({"kernels": [{
         "name": "fused_admm",
@@ -356,20 +383,22 @@ def main() -> None:
         "max_abs_err": max_err,
         **k1,
         "library_ms": None,
-    }, *engine, *probes, *last]}))
+    }, *engine, *probes, *last, plant]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
-def main_path_phase(dev, card) -> int:
+def main_path_phase(dev, card) -> tuple:
     """Phases 4 and 5: the accuracy gate through the captured plan, then the
     captured 50-step closed loop at batch 16384 held against the eager one
-    (see the module docstring). Returns the eager loop's K1 launches; raises
-    on any failed check."""
+    (see the module docstring). Returns the eager loop's K1 launches and the
+    plant kernels a step of the profiled replay runs; raises on any failed
+    check."""
     from strided_tpu_torch import capture as cap  # the module: its counters
     from strided_tpu_torch import closed_loop, config
     from strided_tpu_torch.bench import device_profile, mpc_accuracy
     from strided_tpu_torch.entry import make_controller
+    from strided_tpu_torch.models import quadrotor_rk4 as qr
     from strided_tpu_torch.mpc import fused_admm as fa
 
     replays = cap.REPLAYS
@@ -386,11 +415,11 @@ def main_path_phase(dev, card) -> int:
     x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (batch, 12)),
                          dtype=torch.float32, device=dev)
     loop = lambda: closed_loop(ctrl, model, x0, steps, dt)  # noqa: E731
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = qr.LAUNCHES = 0
     with cap.disable_capture():
         xs_e, us_e = loop()
     torch.cuda.synchronize()
-    launches = fa.LAUNCHES
+    launches, plant_launches = fa.LAUNCHES, qr.LAUNCHES
     captures = cap.CAPTURES
     t = time.perf_counter()
     xs, us = loop()
@@ -399,19 +428,23 @@ def main_path_phase(dev, card) -> int:
     same = torch.equal(xs, xs_e) and torch.equal(us, us_e)
     _ms, _ops, rows = device_profile(loop, calls=1, warmup=1)  # one replay, profiled
     k1_replayed = sum(n for _t, n, name in rows if "fused_admm_kernel" in name)
+    plant_replayed = sum(n for _t, n, name in rows if "quadrotor_rk4_kernel" in name)
     n0 = xs[:, 0].norm(dim=-1).mean().item()
     n1 = xs[:, -1].norm(dim=-1).mean().item()
     print(f"[5 main path] closed loop batch={batch} steps={steps}: captured == eager bit for "
-          f"bit: {same}; {launches} kernel launches eagerly, {k1_replayed:.0f} "
-          f"fused_admm_kernel in a profiled replay; first captured call {first_ms:.1f} ms "
+          f"bit: {same}; {launches} K1 and {plant_launches} plant kernel launches eagerly, "
+          f"{k1_replayed:.0f} fused_admm_kernel and {plant_replayed:.0f} quadrotor_rk4_kernel "
+          f"in a profiled replay; first captured call {first_ms:.1f} ms "
           f"(capture and instantiation {cap.LAST_CAPTURE_MS:.1f}); mean |x| {n0:.4f} -> "
           f"{n1:.4f} [{card}]")
-    if launches != steps:
-        raise RuntimeError(f"expected {steps} kernel launches, counted {launches}")
+    if launches != steps or plant_launches != steps:
+        raise RuntimeError(f"expected {steps} launches of K1 and of the plant kernel, counted "
+                           f"{launches} and {plant_launches}")
     if cap.CAPTURES != captures + 1 or not same:
         raise RuntimeError("the closed loop did not run as one capture equal to the eager loop")
-    if k1_replayed != steps:
-        raise RuntimeError(f"a replay ran fused_admm_kernel {k1_replayed} times, not {steps}")
+    if k1_replayed != steps or plant_replayed != steps:
+        raise RuntimeError(f"a replay ran fused_admm_kernel {k1_replayed} times and "
+                           f"quadrotor_rk4_kernel {plant_replayed} times, not {steps}")
     if tuple(xs.shape) != (batch, steps + 1, 12) or tuple(us.shape) != (batch, steps, 4):
         raise RuntimeError(f"closed loop shapes {tuple(xs.shape)}, {tuple(us.shape)}")
     if not (torch.isfinite(xs).all() and torch.isfinite(us).all()):
@@ -447,7 +480,7 @@ def main_path_phase(dev, card) -> int:
     if len(reads_the_host.cache) or cap.CAPTURES != captures + 2:
         raise RuntimeError("a failed capture left an entry")
 
-    return launches
+    return launches, plant_replayed / steps
 
 
 # the main path's K1 instance (8 x 8 thread tiles, g in registers), as ptxas names it
@@ -1468,7 +1501,7 @@ def _report(phase, what, unit, amount, times, card):
 
 
 def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor", "exp_sym",
-                         "exp_perm")) -> list:
+                         "exp_perm", "quadrotor_rk4")) -> list:
     """Registers, stack frame and spills of each kernel of ``sources``, from
     the ptxas report (``-Xptxas -v``) the build keeps beside the library.
     Returns ``(source, kernel, registers, spill bytes stored)`` for each."""
@@ -2449,6 +2482,175 @@ def tracing_phase(dev, card) -> None:
     print(f"[17 tracing] {time.perf_counter() - t0:.1f} s")
 
 
+def plant_process() -> dict:
+    """Phase 18 in a process of its own (``python3 chip_smoke.py
+    --plant-phase``; its profiles need a profiler that still records
+    kernels), its output printed here; returns the kernel's row of the JSON
+    line; raises when it fails."""
+    import os
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--plant-phase"],
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    print("\n".join(ln for ln in lines if not ln.startswith("{")))
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    if proc.returncode != 0 or len(rows) != 1:
+        raise RuntimeError(f"phase 18 exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return rows[0]
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of their dtype (f32 or f64): the
+    distance between the two values' positions in the ordered line of that
+    dtype (finite values)."""
+    bits, sign = ((torch.int32, 0x7FFFFFFF) if a.dtype == torch.float32
+                  else (torch.int64, 0x7FFFFFFFFFFFFFFF))
+
+    def ordered(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & sign), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def plant_phase(dev, card) -> None:
+    """Phase 18 (the module docstring): prints its checks and times, and
+    the kernel's row of the JSON line last, as a JSON object of its own."""
+    import dataclasses
+
+    from strided_tpu_torch import capture as cap
+    from strided_tpu_torch.bench import graph_ms
+    from strided_tpu_torch.entry import make_controller, make_step
+    from strided_tpu_torch.models import hover_input, hover_state, quadrotor, rk4_step
+    from strided_tpu_torch.models import quadrotor_rk4 as qr
+
+    t0 = time.perf_counter()
+    dt = 0.02
+    declines, launches = qr.DECLINES["autodiff"], qr.LAUNCHES
+    model, ctrl = make_controller(horizon=50, dt=dt, device=dev)
+    print(f"[18 plant] make_controller: DECLINES['autodiff'] +{qr.DECLINES['autodiff'] - declines}"
+          f", LAUNCHES +{qr.LAUNCHES - launches} (the linearisation's jacfwd runs the eager step)")
+    if qr.DECLINES["autodiff"] != declines + 1 or qr.LAUNCHES != launches:
+        raise RuntimeError("the linearisation did not decline the kernel once")
+    xe, ue = hover_state(device=dev), hover_input(device=dev)
+    A, B = model.linearize(xe, ue, dt)
+    A0, B0 = dataclasses.replace(model, fused_step=None).linearize(xe, ue, dt)
+    same = torch.equal(A, A0) and torch.equal(B, B0)
+    print(f"[18 plant] the hover linearisation's A and B equal to the eager plant's bit for bit: "
+          f"{same}")
+    if not same:
+        raise RuntimeError("the linearisation changed with the fused step")
+
+    worst = 0.0
+    other = quadrotor(m=1.7, g=9.7, Jx=0.013, Jy=0.011, Jz=0.023)
+    f32, f64 = torch.float32, torch.float64
+    for batch, body, h, dtype, how in (
+            ((1,), model, dt, f32, ""), ((257,), model, dt, f32, ""),
+            ((16384,), model, dt, f32, ""), ((4, 64), model, dt, f32, ""),
+            ((4096,), other, 0.01, f32, ""), ((16384,), model, dt, f64, ""),
+            ((4096,), other, 0.01, f64, ""), ((16384,), model, dt, f32, "strided"),
+            ((16384,), model, dt, f64, "strided")):
+        x, u, near = qr.stress_inputs(batch, dev, seed=18 + sum(batch), dtype=dtype)
+        if how:  # x read through a row stride of 24, u through rollout's slice us[..., t, :]
+            x = torch.cat([x, x], -1)[:, :12]
+            u = torch.stack([u, u, u], -2)[..., 1, :]
+        launches = qr.LAUNCHES
+        got = body.step(x, u, h)
+        want = rk4_step(body.dynamics, x, u, h)
+        torch.cuda.synchronize()
+        if qr.LAUNCHES != launches + 1 or got.shape != want.shape:
+            raise RuntimeError(f"{batch}: the step did not launch the kernel once")
+        agree = qr.within(got, want)
+        rel = (got.double() - want.double()).abs() / (want.double().abs() + 1)
+        fin = torch.isfinite(got) & torch.isfinite(want)
+        ulps = _ulps(got, want).masked_fill(~fin, 0)
+        at_clamp = ulps.reshape(-1, 12)[near].max().item()
+        widest = rel.masked_fill(~fin, 0).max().item()
+        if dtype == f32:
+            worst = max(worst, widest)
+        what = (f"batch {batch} {str(dtype)[6:]}" + (f", m 1.7, dt {h}" if body is other else "")
+                + (", strided x and u" if how else ""))
+        print(f"[18 plant] {what}: |kernel - eager| / (|eager| + 1) widest {widest:.3e} "
+              f"(limit {qr.TOLERANCE[dtype]:.0e}), widest gap {ulps.max().item()} ulps "
+              f"({at_clamp} on the "
+              f"{near.numel()} rows at the clamp), bit for bit "
+              f"{(got == want).double().mean().item():.6f} of the elements, non-finite "
+              f"{int((~torch.isfinite(got)).sum())} [{card}]")
+        if not bool(agree.all()):
+            raise RuntimeError(f"{what}: {int((~agree).sum())} elements off the eager "
+                               f"step by more than {qr.TOLERANCE[dtype]:.0e} (|eager| + 1)")
+
+    x, u, _ = qr.stress_inputs((16384,), dev, seed=1818)
+    fused = lambda: model.step(x, u, dt)  # noqa: E731
+    eager = lambda: rk4_step(model.dynamics, x, u, dt)  # noqa: E731
+    k1, p1, p2, k2 = (graph_ms(f) for f in (fused, eager, eager, fused))
+    plant_bound = bound(16384 * 28 * 4)
+    print(f"[18 plant] the plant alone at 16384, device time through CUDA graphs in turns: "
+          f"kernel {k1:.4f}/{k2:.4f} ms, eager {p1:.4f}/{p2:.4f} ms; bound "
+          f"{plant_bound['bound_ms']:.4f} ms ({plant_bound['bound_by']}) [{card}]")
+
+    xs = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (16384, 12)),
+                         dtype=torch.float32, device=dev)
+    launches, replays = qr.LAUNCHES, cap.REPLAYS
+    step = make_step(model, ctrl, dt)
+    first = step(xs)
+    at_capture = qr.LAUNCHES - launches
+    for _ in range(10):
+        step(xs)
+    torch.cuda.synchronize()
+    print(f"[18 plant] captured step: LAUNCHES +{at_capture} at its first call (warm-up and "
+          f"capture), +{qr.LAUNCHES - launches - at_capture} over {cap.REPLAYS - replays - 1} "
+          f"more replays")
+    if at_capture != 2 or qr.LAUNCHES != launches + 2 or cap.REPLAYS != replays + 11:
+        raise RuntimeError("the captured step did not launch the kernel at warm-up and "
+                           "capture alone")
+    with cap.disable_capture():
+        eager_first = step(xs)
+    eager_model = dataclasses.replace(model, fused_step=None)
+    step_eager = make_step(eager_model, ctrl, dt)
+    plain_first = step_eager(xs)
+    gap = ((first - plain_first).abs() / (plain_first.abs() + 1)).max().item()
+    print(f"[18 plant] captured step, kernel plant: equal to its eager call bit for bit "
+          f"{torch.equal(first, eager_first)}; against the captured step with the eager plant "
+          f"{gap:.3e} (limit 1e-6)")
+    if not torch.equal(first, eager_first) or not gap <= 1e-6:
+        raise RuntimeError("the captured step with the kernel is off its eager call or off "
+                           "the eager plant")
+    key, _ = cap.signature((xs,), {})
+    graphs = {"kernel": step.cache.get(key)[0], "eager": step_eager.cache.get(key)[0]}
+    ops = {name: _kernel_names(g.replay) for name, g in graphs.items()}
+    plant_ops = {name: sum("quadrotor_rk4" in n for n in o) for name, o in ops.items()}
+    print(f"[18 plant] captured step, device operations a replay: kernel plant "
+          f"{len(ops['kernel'])} ({plant_ops['kernel']} of them the plant kernel), eager plant "
+          f"{len(ops['eager'])} ({plant_ops['eager']})")
+    if plant_ops != {"kernel": 1, "eager": 0}:
+        raise RuntimeError(f"a replay of the captured step ran the plant kernel "
+                           f"{plant_ops['kernel']} times with the kernel plant and "
+                           f"{plant_ops['eager']} with the eager plant, not 1 and 0")
+    ms = {"kernel": [], "eager": []}
+    for name in ("kernel", "eager", "eager", "kernel"):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        graphs[name].replay()
+        start.record()
+        for _ in range(200):
+            graphs[name].replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name].append(start.elapsed_time(end) / 200)
+    print(f"[18 plant] captured step, ms a replay back to back, in turns: kernel plant "
+          f"{ms['kernel']}, eager plant {ms['eager']} [{card}]")
+    print(f"[18 plant] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({
+        "name": "quadrotor_rk4", "route": "cuda",
+        "source": "strided_tpu_torch/csrc/quadrotor_rk4.cu",
+        "replaces": None,  # no TPU kernel: XLA fuses the reference's plant
+        "launches": None,  # a step's count, from phase 5's profiled replay (main)
+        "max_rel_err": worst, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+        **plant_bound, "library_ms": None}))
+
+
 if __name__ == "__main__":
     import sys
 
@@ -2458,5 +2660,9 @@ if __name__ == "__main__":
         from strided_tpu_torch.bench import card_label
 
         tracing_phase("cuda", card_label())
+    elif sys.argv[1:2] == ["--plant-phase"]:
+        from strided_tpu_torch.bench import card_label
+
+        plant_phase("cuda", card_label())
     else:
         main()

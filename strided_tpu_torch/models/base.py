@@ -8,7 +8,7 @@ batched linearization is ``torch.func.vmap`` over every leading dimension.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.func import jacfwd, vmap
@@ -31,15 +31,24 @@ def rk4_step(f: Callable, x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
 class Model:
     """A dynamics model: ``dynamics(x, u) -> xdot`` on ``(*batch, n)`` /
     ``(*batch, m)`` tensors, ``step`` the RK4 map, ``linearize`` the
-    Jacobians (A, B) of the discrete step."""
+    Jacobians (A, B) of the discrete step.
+
+    ``fused_step(x, u, dt)``, where a model has one, is the same RK4 step in
+    one kernel; it returns ``None`` for a call it declines, which ``step``
+    then runs eagerly."""
 
     name: str
     state_dim: int
     input_dim: int
     dynamics: Callable  # (x, u) -> xdot
+    fused_step: Optional[Callable] = None  # (x, u, dt) -> x_next or None
 
     @annotated("model.step")
     def step(self, x, u, dt):
+        if self.fused_step is not None:
+            out = self.fused_step(x, u, dt)
+            if out is not None:
+                return out
         return rk4_step(self.dynamics, x, u, dt)
 
     def linearize(self, x, u, dt) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,8 +7,11 @@ Counterpart of ``strided_tpu/models/quadrotor.py``, same formulas. State
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from . import quadrotor_rk4
 from .base import Model
 
 __all__ = ["quadrotor", "hover_state", "hover_input"]
@@ -62,7 +65,8 @@ def quadrotor(m=1.0, g=9.81, Jx=0.01, Jy=0.01, Jz=0.02) -> Model:
 
         return torch.cat([v, acc, euld, wdot], dim=-1)
 
-    return Model("quadrotor", 12, 4, dynamics)
+    fused = functools.partial(quadrotor_rk4.rk4, m=m, g=g, J=(Jx, Jy, Jz))
+    return Model("quadrotor", 12, 4, dynamics, fused_step=fused)
 
 
 def hover_state(dtype=torch.float32, device=None):
