@@ -1,262 +1,106 @@
-"""Smoke test of the PyTorch / CUDA port on one GPU.
+"""Card checks of the PyTorch / CUDA port on one GPU.
 
     python3 chip_smoke.py
 
-Drives the port's main path, one closed-loop step of the scenario-batched
-12-state quadrotor MPC per control period, on the card at the headline size
-(horizon 50, D = N*m = 200, ADMM-6 at rho=8, f32, batch 16384). Phases:
+Builds the port's CUDA sources on the card and holds every kernel and every
+captured entry point there against its plain version. The card has no JAX,
+so these checks are the port's correctness net on it. The rule: this file
+holds card checks only; a kernel's time belongs in its script under
+``strided_tpu_torch/benchmarks/`` or in the benchmark (``portbench/``).
+Phases (numbers are cited by the tests, README, PERF.md and ROADMAP.md):
 
-1. device: a CUDA device is required; prints its name and power limit;
-2. build: compiles the CUDA sources (strided_tpu_torch/csrc) with nvcc, and
-   prints ptxas's registers, stack frame and spills of every K1, K3, K4,
-   transpose-pair probe, rank-4 reversal and plant kernel; K1's 64-row
-   instance (the main path's), every instance of K3's program kernel, of
-   K4's multi-axis map (``tile_box_v``) and
-   every ``rev4_tiles`` and ``pair_tiles`` instance must not spill, and
-   every ``rev4_tiles``, ``rev4_mma``, ``pair_tiles`` and ``tile_box_v``
-   instance must be built; the plant kernel's f32 and f64 instances must be
-   built and not spill;
-3. kernel vs plain: the fused-ADMM kernel against its plain PyTorch version
-   on the same inputs, and both against the same iterations in f64: the
-   main-path QP (D=200) at B = 16384, at 64 * #SMs +- 1 (one row past or
-   short of a whole wave of 64-row tiles), 63, 65, 33, 31 and 1; random QPs
-   at D = 1, 12, 199, 201, 208 (the last width of the 64-row tiles), 209
-   (the first of the wide instance's 16-row ones), 300 at B = 16 * #SMs +
-   1, 400 and 512 (S streamed in panels), and 200 with z0 outside the
-   bounds;
-4. accuracy gate: first applied input within 1e-4 and horizon plan within
-   0.15 of a converged f64 ADMM oracle, through the kernel path, the plan
-   captured (one CUDA-graph replay, ``strided_tpu_torch.capture``);
-5. main path: a 50-step closed loop at batch 16384 through
-   ``strided_tpu_torch.entry.make_controller``, run captured (the whole loop
-   one CUDA graph) and eagerly (``capture.disable_capture()``) on the same
-   state: the two must agree bit for bit; the eager loop must launch K1
-   and the plant kernel once per step each (a replay launches from the
-   graph and counts nothing), and a profiled replay must run
-   ``fused_admm_kernel`` and ``quadrotor_rk4_kernel`` once per step each
-   (the plant's row of the JSON line gives that count a step); the loop must stay finite, shrink the state, and agree with the
-   plain path, which must take an entry of its own (the config is in the
-   key), after which the kernel's entry replays again, equal; a captured
-   function that reads the host must raise, not run eagerly;
-6. times (CUDA events after warm-up): the step captured (``entry.make_step``,
-   one replay a step), eagerly, its first call (warm-up, capture,
-   instantiation) and as device time alone (``bench.step_device_ms``: chained
-   steps in one CUDA graph, after the captured step is held bit for bit
-   against the eager step), with the kernel on and off;
-   the kernel against its plain version and six cuBLAS products of the same
-   shapes under IEEE FP32 (``product_ms``); then ``benchmarks/exp_admm.py``:
-   K1, the tile designs it was chosen over and S streamed through its ring
-   in panels of 32 and 64 rows, each checked as in phase 3 and timed at 6
-   and 12 iterations;
-7. wide QP: ``qp_solve`` at horizon 150 (D = N*m = 600, above the kernel's
-   MAX_D = 512) with the kernel enabled must take the loop path and agree
-   with it, finite;
-8. the strided engine's main path at full size, through its entry points:
-   the flagship ``(v + v.T) / 2`` at 4000^2 and 8192^2 f32 (and ``3v + 2v.T``,
-   ``v - v.T``, bf16 at 4096^2, ragged 4001) through the tile-pair kernel;
-   ``ssum(v, axis=0)``, ``smax(transpose(v), axis=1)`` and an int32 sum
-   through the stream reduction; ``permutedims_into`` of an 8192^2
-   transpose and a 64x128x64x128 permute, the scrambled map
-   ``smap(x*3 + y, v.T, w)`` and (``kernel_reductions`` on) the int32
-   ``out = 3*old + sum over axis 0`` through the tile executor, and
-   ``smean(v, 0)`` through K3's program kernel. Each checks the dispatch
-   record, and the result against the kernel's plain PyTorch version on the
-   same inputs (bit-exact, except f32 sums: 1e-6 * rows * max|f(a)|, the
-   summation order differs); the launch counts, and K3's and K4's by the
-   kernel each launcher reports it ran (for K3 with its width), are read
-   for this phase alone; then coverage off the main path: every program op
-   through K4 (f32, bf16), bodies wider than ``ewise.CREG`` registers
-   through K4's scalar interpreter, K4's per-element maps; K3 with every
-   fold on f32, bf16 and int32 rows that are and are not whole 16-byte
-   runs, and every program kernel: bodies of 1, 2, 3 and 5 registers on
-   f32, bf16 and int32 leaves, float- and int-valued, every fold, on 8
-   columns a thread and on one (ragged rows, an unaligned base); K4's
-   multi-axis map (``multi_axis_checks``, limit 0): the README's
-   four-permute sum at 96^4 (f32, bf16, int32), four inputs at 37x96x45x70,
-   two- and three-input rank-3 maps, one with a broadcast row, and a rank-5
-   map with four staging dims, which stays on ``tile_t2d_v``;
-9. engine times: each kernel's wrapper against its plain version, in turns
-   (kernel, plain, plain, kernel; with the one PyTorch call that computes
-   the same function inside the turns where there is one), with GB/s; K2
-   also at 1024^2 and 2048^2, the data for re-setting the TPU-valued size
-   gates; the flagship through its entry point (``st.to_array((v + v.T) /
-   2)``, host work included) against eager ``(a + a.T) / 2``; K3's f32, max,
-   int32 and bf16 sums, ``st.smean(v, 0)`` (f32, bf16) against ``a.mean(0)``,
-   programs of 3 and 5 registers, an int32 ``t*3 + 1``, an instruction
-   ladder (0, 1, 2, 3, 9), four of those programs once more on one column
-   a thread (an unaligned base), and K4's maps on the staged 8192^2 layout
-   (the instruction ladder, bf16, int32 ``where``, the scalar interpreter),
-   and the four-permute sum at 96^4 through the multi-axis map against its
-   plain version, the PyTorch expression and ``tile_t2d_v``
-   (``multi_axis_times``), each checked against its plain version first, and timed eagerly (every
-   ``ms`` of the JSON line is an eager time) and as device time alone
-   (``bench.graph_ms``, CUDA graphs; the ``device_*`` keys);
-10. linalg at full size: ``mul`` f32 8192^2 through cuBLAS (equal to the
-    plain ``alpha * a @ b + beta * c`` under IEEE FP32, and within 1e-2 of
-    the f64 product: TF32 products would miss by ~4e-2), a transposed
-    operand against its plain counterpart, a bf16 ``mul`` (bf16 operands
-    run natively: the single-pass product, within its f32 summation-order
-    bound of the plain one, then one rounding), ``axpby(0.5, transpose(v), 0.5, v)`` at 8192^2
-    through K2 (record ``pair-kernel``, exact), the int32 generic ``mul`` at
-    512^3 with ``kernel_reductions`` off and on (exact, route recorded) and
-    ``v @ w``; K2's launches read for this phase alone; times of ``mul`` and
-    ``axpby`` against plain;
-11. the transpose-pair probes: ``exp_sym`` (every variant at 8192^2, each
-    checked into a NaN-filled output) and ``exp_pair_rect`` (at 8064^2)
-    through their ``main``, with the four probe kernels' launches read for
-    that run alone; each kernel at every tile shape (``pair_tiles`` in all
-    four modes: full, copy, and each skipping the diagonal's second write),
-    written into a NaN-filled output made just before the call, exactly
-    equal to its plain version (NaN pattern included for ``rect_pairs``)
-    and timed against it in turns, with the one PyTorch call computing the
-    same function inside the turns (``x.T.contiguous()``, ``torch.lerp(x,
-    x.T, 0.5)``, ``x.clone()`` for the copy mode); both probe modules once
-    more as ``python -m``;
-12. the streaming-reduction and rank-4 reversal probes: ``exp_reduce`` (at
-    8192^2), ``exp_perm2``, ``exp_perm4`` and ``exp_perm_probe`` (at 64^4)
-    through their ``main``, with the four new kernels' launches (and
-    ``transpose_tiles``' for ``exp_perm4``'s 2-D transposes) read for that run
-    alone; ``stream_sum_slabs`` at every slab within K3's tolerance of the
-    plain and the f64 sum, and equal to ``a[0]`` with compute off; every
-    reversal variant (``rev4_tiles``, ``rev4_mma`` at both precisions,
-    ``rev4_async``, the plane copy), written into a NaN-filled output made
-    just before the call (here and in the scripts' own checks), exactly
-    equal to its plain version; each timed against it in turns; the four
-    modules once more as ``python -m``;
-13. the rest of the MPC stack (Riccati, rollouts, iLQR; no kernel of its
-    own) at the reference's sizes: the quadrotor's hover LQR gain at N=50 in
-    f32 within 1e-4 of the f64 CPU gain; 4096 double-pendulum rollouts of
-    100 steps, ``rollout_final`` equal to the last state of ``rollout`` bit
-    for bit, the first 64 within 1e-4 of the same rollouts in f64 on the
-    CPU, through the captured entry points: the first captured call equal to
-    the eager one bit for bit, timed captured, eagerly and as device time,
-    with the first call's time and its capture's, and profiled eagerly and
-    captured (kernels a call, their device time, the device's busy share);
-    cartpole iLQR (T=40, 15 iterations) in f32 within 1e-3 of f64 on the
-    CPU; ``benchmarks/ilqr_bench.py`` (batch 256, horizon 50, 10
-    iterations): the first captured solve equal to the eager one bit for
-    bit, every cost finite, captured, eager and device time and solves/s,
-    the first call and its capture, the memory the graph took, and a solve
-    profiled captured (the eager solve's 90k host launches under the
-    profiler would be most of the phase's time);
-14. slice C, the multi-GPU layer (``strided_tpu_torch.parallel``), at
-    BASELINE config 5's size (16384 scenarios, N=50, ADMM-20, f32), the
-    step and the consensus captured on NCCL (one CUDA-graph replay a call a
-    rank, K1 and the ``all_reduce`` inside it): (a) one process, a 1-rank
-    NCCL mesh: counted eagerly (inside ``disable_capture()``), the step
-    equal bit for bit to ``ctrl.control`` + ``model.step`` on the same state
-    and the consensus to their mean, K1 launched once a call; then captured
-    and held bit for bit against the eager calls (``bench.matches_eager``,
-    two captures, K1 launched once by each warm-up and once by each
-    capture), each profiled over replays with ``fused_admm_kernel`` found
-    in them; ``sharded_rollout`` replaying the captured ``rollout``
-    (one capture, two replays, equal to eager); ``benchmarks/scenario_mpc.py``'s
-    row (the chained step captured, with its eager, device and first-call
-    times) and its chained step profiled captured and eagerly; (b) two ranks
-    (``slice_c_ranks``, this script's own rank entry through
-    ``parallel.multiproc.spawn``: NCCL with two cards or more, else gloo
-    asked for, whose calls run eagerly and whose captured calls must be
-    refused, printed as "eager (gloo)"), each running the dry-run surface
-    (``multiproc.dryrun_checks``) and then at full size (``slice_c_full``)
-    the step (each rank's rows within 1e-5 of the unsharded step's and 2e-4
-    of K1's plain version, the ADMM loop, K1 once a rank eagerly; over NCCL
-    the captured step and consensus equal to the eager ones bit for bit),
-    the consensus (within 1e-5 of the oracle's mean), ``sharded_batched_pair`` on (4,
-    4096, 4096) (K2 twice a rank, equal to ``pair_reference``) and
-    ``sharded_stream_sum`` on (16384, 8192) (K3 once a rank on its
-    2^26-element block, identity route, within 1e-6 rows max|a| of the f64
-    sum), with each rank's times (captured and eager) and, over NCCL, each
-    rank's ``scenario_mpc`` row and the profile of its chained step.
-    Two ranks on one card share it: their times are no scaling number.
-15. the engine's four size gates (``config.py``, set from the card's
-    crossovers): at each gate one size at it and one just below through the
-    public engine (K2's ``(v + v.T) / 2``, K3's ``ssum(v, 0)``, K4's
-    ``scale_into(dst, 0.999, transpose(v))`` at ``map_min_elements`` and,
-    with the map gate at 1, at ``min_kernel_elements``): the kernel's
-    launch counted and its dispatch record at the gate, the plain path
-    below, both equal to the plain version (bit for bit; the sums within
-    1e-6 * rows * max|a|); ``benchmarks/sweeps.py --quick`` (every record
-    with both arms eagerly and as device time, no rate above the card's
-    peak, the rotation litmus); ``benchmarks/exp_contract.py`` (as ``python
-    -m``, a process of its own: its profiler must see the kernels): ``contract``
-    and ``mul`` read a lazily transposed operand with no copy before the
-    product; and one line of the chosen gates.
-16. the reference's precision name "default" and what takes it: the
-    single-pass bf16 product (``config.matmul``, the route it took printed)
-    against its plain version (operands rounded to bf16, IEEE FP32) at
-    16384x200 @ 200x200 and 4096^2, within the f32 summation-order bound
-    2 k 2^-24 (|a| @ |b|) elementwise; ``qp_solve`` on the main path's QP
-    with ``coarse_iters`` 0 of 20 (K1 once, equal bit for bit to K1 on the
-    IEEE FP32 ``g`` and warm start) and 12 of 20 (no K1), and one coarse
-    iteration against the plain product's within alpha times that bound;
-    ``closed_loop`` at batch 16384 with ``admm_coarse_iters`` 12 of 20,
-    captured and eager bit for bit, no K1 launch; ``mul`` at "default" at
-    2048^2 against the plain product; ``symmetrize(x, 256)`` and
-    ``symmetrize(x, tile=64)`` equal to ``(x + x.T) / 2`` at 4000^2 bit for
-    bit; ``python -m strided_tpu_torch.bench`` in a process of its own
-    (exit 0, its last line a JSON object with ``metric``, ``value``,
-    ``unit``, ``vs_baseline``, printed here);
-17. the port's spans (``utils/profiling.py``), in a process of its own
-    (``python3 chip_smoke.py --tracing-phase``; this process's profiler
-    stops recording kernels after phases 5-14's profiles): a span's host
-    cost with tracing off and on, net of the empty loop; the captured step at batch 16384 with tracing off
-    (no marker in a profiled replay) and on (a capture of its own; each of
-    ``qp.solve``'s and ``model.step``'s two markers once a replay; equal
-    to the unmarked step bit for bit); both graphs' device time in turns;
-    no marker in a graph the caller captures itself; the spans' totals;
-18. the quadrotor's RK4 plant kernel (``models/quadrotor_rk4.py``), in a
-    process of its own (``python3 chip_smoke.py --plant-phase``):
-    ``make_controller``'s linearisation declining the kernel once
-    (``DECLINES``), the hover ``A`` and ``B`` equal to the eager plant's bit
-    for bit; the kernel against the eager step (``rk4_step(model.dynamics,
-    ...)``) in f32 at batch 1, 257, 16384 and (4, 64), at 4096 for another
-    body (m = 1.7, dt = 0.01), in f64 at 16384 and for the other body, and
-    at 16384 on strided operands (x through a row stride of 24, u as
-    rollout's slice ``us[..., t, :]``) in both dtypes, on random states with
-    large angles, every eighth pitch within 1e-7 of +-pi/2 (the clamp), each
-    element within ``quadrotor_rk4.TOLERANCE`` (1e-6 (|eager| + 1) in f32,
-    1e-13 in f64), with the widest gap in ulps and the share equal bit for
-    bit; the plant alone, kernel and eager, as device time through CUDA
-    graphs in turns; the captured step launching the kernel once at its
-    warm-up and once at its capture and never at a replay (``LAUNCHES``),
-    equal to its eager call bit for bit; the captured step's device
-    operations a replay with the kernel and with the eager plant (exactly
-    one plant kernel with the kernel plant, none with the eager one), and
-    each graph's time in turns.
+1. device: a CUDA device is required; prints its name and power limit.
+2. build: nvcc for sm_90a; from ptxas's report, K1's main-path instance,
+   the 14 K3 program kernels, K4's two ``tile_box_v``, every ``rev4_tiles``
+   and ``pair_tiles`` instance and the plant kernel's f32 and f64 instances
+   built without spills; every ``rev4_mma`` instance built.
+3. K1 against its plain version, within 2e-4 and no further from the f64
+   iterations than twice the plain version plus 1e-6: the main-path QP at
+   B = 16384, 64 * #SMs +- 1, 65, 63, 33, 31, 1; random QPs at D = 1, 12,
+   199, 201, 208, 209, 300, 400, 512 and with z0 outside the bounds; K1's
+   tile designs (``benchmarks/exp_admm.py``) on the main-path QP at 16384.
+4. accuracy gate: the captured plan (one replay) at batch 64, first input
+   within 1e-4 and plan within 0.15 of the converged f64 ADMM oracle.
+5. main path: the 50-step closed loop at batch 16384 captured (one graph)
+   equal to the eager loop bit for bit; K1 and the plant kernel launched 50
+   times eagerly and run 50 times in a profiled replay; finite, regulating,
+   within 1e-3 of the plain path, whose config takes its own capture; a
+   captured host read raises and leaves no entry.
+6. the captured step (``entry.make_step``, batch 16384) with K1 on and
+   off: its first call equal to the eager step bit for bit, 111 chained
+   steps finite.
+7. wide QP: ``qp_solve`` at D = 600 (above ``MAX_D``) takes the loop path,
+   equal to it, finite.
+8. the engine's main path at full size through its entry points: K2 on the
+   flagship family (4000^2-8192^2, bf16, ragged), K3 on sums, max and
+   ``smean`` at 8192^2, K4 on ``permutedims_into``, ``smap`` and an int32
+   initop reduction; dispatch records, K3 paths and launches; then every
+   program op, per-element maps and reductions through K4, every fold and
+   program kernel of K3 on aligned, ragged and unaligned rows, and K4's
+   multi-axis map (``multi_axis_checks``), each against its plain version
+   (exact, except float sums: 1e-6 * rows * max|f(a)|).
+9. off phase 8's cases at 8192^2: K3's folds, programs, instruction ladder
+   and unaligned base with the path and width it ran (``reduce_checks``);
+   K4's maps on the staged two-input layout with the interpreter they ran
+   (``map_checks``).
+10. linalg at 8192^2: ``mul`` under IEEE FP32 against plain and within
+    1e-2 of f64 (transposed A too), bf16 ``mul`` within its bound, ``axpby``
+    through K2 exact, ``v @ w``, the int32 generic ``mul`` at 512^3 with
+    ``kernel_reductions`` off and on.
+11. the transpose-pair probes: every variant of ``exp_sym`` (8192^2) and
+    ``exp_pair_rect`` (8064^2) on the input their ``run`` draws, as
+    ``run`` checks it, and their four kernels launched; each kernel at every
+    tile shape written into NaNs, equal to its plain version.
+12. the reduction and reversal probes: every variant of ``exp_reduce``
+    (8192^2), ``exp_perm2``, ``exp_perm4`` and ``exp_perm_probe`` (64^4)
+    and the engine's reversal on the inputs their ``run`` draws, and their
+    kernels launched; ``stream_sum_slabs`` at every slab within K3's
+    tolerance of the plain and the f64 sum (and ``a[0]`` with compute off);
+    every reversal variant into NaNs, exact.
+13. MPC stack: the Riccati gain within 1e-4 and 4096 rollouts within 1e-4
+    of f64 on the CPU, ``rollout_final`` equal to ``rollout``'s last state,
+    cartpole iLQR within 1e-3 of f64; the captured rollouts and
+    ``benchmarks/ilqr_bench.py``'s solve equal to eager bit for bit, costs
+    finite.
+14. slice C at BASELINE config 5's size: on a 1-rank NCCL mesh the step and
+    consensus against ``ctrl.control`` + ``model.step``, K1 launches, their
+    captures equal to eager and K1 in their profiled replays, the sharded
+    rollout replaying the captured ``rollout``, ``scenario_mpc``'s chained
+    step (``scenario_checks``); then two ranks (``slice_c_ranks``: NCCL on
+    two cards, else gloo, whose captured calls must be refused) with the
+    dry-run surface and the full-size step, consensus, K2 and K3 checks.
+15. the engine's four size gates: one size at each gate and one below
+    through the public engine, route and result; ``sweeps --quick``'s own
+    measurement checks; ``exp_contract`` (a process of its own): no copy
+    of a lazy transpose before the product.
+16. the precision name "default": the single-pass bf16 product within its
+    bound, ``qp_solve``'s ``coarse_iters`` (K1 or not, the first coarse
+    iteration's bound), the coarse closed loop captured equal to eager with
+    no K1, ``mul`` at "default", ``symmetrize`` exact, and ``python -m
+    strided_tpu_torch.bench`` exiting 0 with its headline keys.
+17. the port's spans, in a process of its own (``--tracing-phase``): no
+    marker with tracing off or in a caller's graph, each section's two
+    markers once a traced replay, equal to the unmarked step; spans'
+    counts and parents.
+18. the RK4 plant kernel, in a process of its own (``--plant-phase``): the
+    linearisation declines it once and stays bit for bit; the kernel within
+    ``quadrotor_rk4.TOLERANCE`` of the eager step (f32 and f64, batches 1 to
+    16384, another body, strided operands); the captured step launching it
+    at warm-up and capture only, equal to eager, one plant kernel a replay.
 
-Any failure raises, so the exit code is non-zero. The last two lines are a
-JSON object describing the thirteen kernels (each with its time, its plain
-version's, its bound on an H100 SXM from NVIDIA's data sheet, and the time
-of one PyTorch call computing the same function where there is one), then
+Any failure raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import json
-import time
 
 import numpy as np
 import torch
 
 ATOL_KERNEL = 2e-4  # f32 summation order differs from cuBLAS; |g| reaches ~1.4e3
 ATOL_LOOP = 1e-3  # closed-loop states, kernel vs plain path, 50 steps (f32)
-# NVIDIA H100 SXM data sheet: HBM3 rate, FP32 off the tensor cores (TF32
-# fails K1's gate and mul's 1e-2 check, so it sets no bound), dense bf16 on
-# the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
-
-
-def bound(nbytes: float, ops: float = 0.0, ops_per_s: float = FP32_OPS_PER_S) -> dict:
-    """The least time the card could take for the work: the larger of the
-    bytes it must move (each input read once, each output written once) over
-    the HBM rate and its operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-    if t_ops > t_bytes:
-        return {"bound_ms": t_ops, "bound_by": "operations"}
-    return {"bound_ms": t_bytes, "bound_by": "bytes"}
 
 
 def _admm_inputs(ctrl, x):
@@ -286,18 +130,16 @@ def main() -> None:
 
     from strided_tpu_torch import _build, config
     from strided_tpu_torch.bench import card_label
+    from strided_tpu_torch.benchmarks import exp_admm
     from strided_tpu_torch.entry import make_controller
     from strided_tpu_torch.mpc import fused_admm as fa  # the module
 
     dev = "cuda"
     kind = torch.cuda.get_device_name(0)
-    card = card_label()
     print(f"[1 device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(card)
+    print(card_label())
 
-    t = time.perf_counter()
     _build.load_library()
-    print(f"[2 build] nvcc sm_90a: {time.perf_counter() - t:.1f} s")
     report = ptxas_report()
     main_k1 = [spill for src, name, _regs, spill in report
                if src == "fused_admm" and K1_MAIN_INSTANCE in name]
@@ -321,11 +163,16 @@ def main() -> None:
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
 
     @config.matmul_precision_scope
-    def check(g, z0, S, lo, hi):
+    def check(g, z0, S, lo, hi, design=None):
+        """K1 (or its tile design ``design`` of ``benchmarks/exp_admm.py``)
+        against the plain version and both against f64."""
         before = fa.LAUNCHES
-        k = fa.fused_admm(g, z0, S, lo, hi, rho=rho, alpha=alpha, iters=iters)
+        if design is None:
+            k = fa.fused_admm(g, z0, S, lo, hi, rho=rho, alpha=alpha, iters=iters)
+        else:
+            k = exp_admm.variants()[design](g, z0, S, lo, hi, iters=iters)
         torch.cuda.synchronize()
-        if fa.LAUNCHES != before + 1:
+        if design is None and fa.LAUNCHES != before + 1:
             raise RuntimeError("fused_admm did not count its launch")
         p = fa.fused_admm_reference(g, z0, S, lo, hi, rho=rho, alpha=alpha, iters=iters)
         r = fa.fused_admm_reference(*(a.double() for a in (g, z0, S, lo, hi)),
@@ -334,7 +181,7 @@ def main() -> None:
         e_k64 = (k.double() - r).abs().max().item()
         e_p64 = (p.double() - r).abs().max().item()
         B, D = g.shape
-        print(f"[3 kernel] B={B} D={D}: |kernel-plain| {e_kp:.3e}, "
+        print(f"[3 kernel] {design or 'fused_admm'} B={B} D={D}: |kernel-plain| {e_kp:.3e}, "
               f"|kernel-f64| {e_k64:.3e}, |plain-f64| {e_p64:.3e}")
         if not torch.isfinite(k).all():
             raise RuntimeError(f"fused_admm: non-finite output at B={B}, D={D}")
@@ -345,55 +192,46 @@ def main() -> None:
                 f"fused_admm less accurate than FP32 allows: |kernel-f64| {e_k64:.3e} "
                 f"> 2 * |plain-f64| {e_p64:.3e} + 1e-6 (reduced-precision products?)"
             )
-        return e_kp
 
     rng = np.random.default_rng(0)
-    max_err = 0.0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B in (16384, 64 * sms - 1, 64 * sms + 1, 65, 63, 33, 31, 1):
         x = torch.as_tensor(rng.uniform(-0.3, 0.3, (B, 12)), dtype=torch.float32,
                             device=dev)
-        max_err = max(max_err, check(*_admm_inputs(ctrl, x)))
+        check(*_admm_inputs(ctrl, x))
     for B, D in ((65, 1), (33, 12), (65, 199), (65, 201), (65, 208), (65, 209),
                  (16 * sms + 1, 300), (33, 400), (65, 512)):
         check(*_random_inputs(rng, B, D, dev))
     check(*_random_inputs(rng, 65, 200, dev, z0_scale=2.0))
+    # K1's tile designs on the QP exp_admm's run draws; its "k1" row is the
+    # first B = 16384 case above (the same states, controller and limits)
+    designs = exp_admm.main_path_inputs(16384)
+    for name in exp_admm.variants():
+        if name != "k1":
+            check(*designs, design=name)
 
-    launches, plant_launches = main_path_phase(dev, card)
-    k1 = k1_times(dev, ctrl, rng, 16384, card, rho=rho, alpha=alpha, iters=iters)
-
+    main_path_phase(dev)
+    step_checks(dev)
     wide_qp_check(dev)
-    engine = engine_phases(dev, card)
-    linalg_phase(dev, card)
-    probes = probe_phases(dev, card)
-    last = reduce_perm_phase(dev, card)
-    mpc_stack_phase(dev, card)
-    slice_c_phase(dev, card)
-    gates_phase(dev, card)
-    precision_phase(dev, card)
+    engine_phases(dev)
+    linalg_phase(dev)
+    probe_phases(dev)
+    reduce_perm_phase(dev)
+    mpc_stack_phase(dev)
+    slice_c_phase(dev)
+    gates_phase(dev)
+    precision_phase(dev)
     tracing_process()
-    plant = {**plant_process(), "launches": plant_launches}
+    plant_process()
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_admm",
-        "route": "cuda",
-        "source": "strided_tpu_torch/csrc/fused_admm.cu",
-        "replaces": "strided_tpu/mpc/qp.py:157",
-        "launches": launches,
-        "max_abs_err": max_err,
-        **k1,
-        "library_ms": None,
-    }, *engine, *probes, *last, plant]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
-def main_path_phase(dev, card) -> tuple:
+def main_path_phase(dev) -> None:
     """Phases 4 and 5: the accuracy gate through the captured plan, then the
     captured 50-step closed loop at batch 16384 held against the eager one
-    (see the module docstring). Returns the eager loop's K1 launches and the
-    plant kernels a step of the profiled replay runs; raises on any failed
-    check."""
+    (see the module docstring); raises on any failed check."""
     from strided_tpu_torch import capture as cap  # the module: its counters
     from strided_tpu_torch import closed_loop, config
     from strided_tpu_torch.bench import device_profile, mpc_accuracy
@@ -421,10 +259,8 @@ def main_path_phase(dev, card) -> tuple:
     torch.cuda.synchronize()
     launches, plant_launches = fa.LAUNCHES, qr.LAUNCHES
     captures = cap.CAPTURES
-    t = time.perf_counter()
     xs, us = loop()
     torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t) * 1e3
     same = torch.equal(xs, xs_e) and torch.equal(us, us_e)
     _ms, _ops, rows = device_profile(loop, calls=1, warmup=1)  # one replay, profiled
     k1_replayed = sum(n for _t, n, name in rows if "fused_admm_kernel" in name)
@@ -434,9 +270,7 @@ def main_path_phase(dev, card) -> tuple:
     print(f"[5 main path] closed loop batch={batch} steps={steps}: captured == eager bit for "
           f"bit: {same}; {launches} K1 and {plant_launches} plant kernel launches eagerly, "
           f"{k1_replayed:.0f} fused_admm_kernel and {plant_replayed:.0f} quadrotor_rk4_kernel "
-          f"in a profiled replay; first captured call {first_ms:.1f} ms "
-          f"(capture and instantiation {cap.LAST_CAPTURE_MS:.1f}); mean |x| {n0:.4f} -> "
-          f"{n1:.4f} [{card}]")
+          f"in a profiled replay; mean |x| {n0:.4f} -> {n1:.4f}")
     if launches != steps or plant_launches != steps:
         raise RuntimeError(f"expected {steps} launches of K1 and of the plant kernel, counted "
                            f"{launches} and {plant_launches}")
@@ -480,7 +314,38 @@ def main_path_phase(dev, card) -> tuple:
     if len(reads_the_host.cache) or cap.CAPTURES != captures + 2:
         raise RuntimeError("a failed capture left an entry")
 
-    return launches, plant_replayed / steps
+
+def step_checks(dev) -> None:
+    """Phase 6: ``entry.make_step``'s captured step at batch 16384 with K1
+    on and off: its first call equal to the eager step bit for bit
+    (``bench.matches_eager``), then 56 steps chained captured and 55 eagerly
+    from there, the last state finite."""
+    from strided_tpu_torch import config
+    from strided_tpu_torch.bench import matches_eager
+    from strided_tpu_torch.capture import disable_capture
+    from strided_tpu_torch.entry import make_controller, make_step
+
+    model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
+    step = make_step(model, ctrl, 0.02)
+    for fused in (True, False):
+        x = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (16384, 12)),
+                            dtype=torch.float32, device=dev)
+        config.set_config(fused_admm=fused)
+        try:
+            matches_eager(lambda: step(x))
+            for _ in range(56):
+                x = step(x)
+            with disable_capture():
+                for _ in range(55):
+                    x = step(x)
+            torch.cuda.synchronize()
+        finally:
+            config.set_config(fused_admm=True)
+        finite = bool(torch.isfinite(x).all())
+        print(f"[6 step] make_step batch 16384, K1 {'on' if fused else 'off'}: captured == "
+              f"eager bit for bit, 111 chained steps finite: {finite}")
+        if not finite:
+            raise RuntimeError(f"the closed-loop step (K1 {fused}) produced non-finite states")
 
 
 # the main path's K1 instance (8 x 8 thread tiles, g in registers), as ptxas names it
@@ -632,106 +497,6 @@ def multi_axis_checks(dev, gen) -> None:
                       min_kernel_elements=old_cfg.min_kernel_elements)
 
 
-PERMUTE_SUM_T2D_MS = 3.04  # tile_t2d_v<4> a call in card_scale's profile before this map (PERF.md)
-
-
-def multi_axis_times(dev, gen, report) -> None:
-    """Phase 9, the README's four-permute sum at 96^4 through K4's
-    multi-axis map, called eagerly and as device time (CUDA graphs), in
-    turns with its plain version and the PyTorch expression; then the same
-    plan on tile_t2d_v (the staging cleared) against the multi-axis map.
-    Bounds: the needed bytes (A read once, the output written once) and four
-    reads of A and one write, the least a kernel reading each view once
-    moves."""
-    import dataclasses
-
-    import strided_tpu_torch as st
-    from strided_tpu_torch.core import executor_cuda as ec
-
-    for dt in (torch.float32, torch.bfloat16):
-        (v, *_), (a, *_) = _permuted_views((96,) * 4, [(0, 1, 2, 3)], dt, dev, gen)
-        views = [v, st.permutedims(v, P2), st.permutedims(v, P3), st.permutedims(v, P4)]
-        out = st.strided(torch.empty_like(a))
-        plan = ec.make_plan(lambda p, q, r, s: p + q + r + s, None, None, a.shape, out, views)
-        if plan is None or not plan.stage:
-            raise RuntimeError("four-permute sum: not a multi-axis plan")
-        old = dataclasses.replace(plan, stage=())
-        pars = [a] * 4
-        kernel = lambda: ec.tile_executor(plan, out.parent, pars)  # noqa: E731
-        plain = lambda: ec.tile_executor_reference(plan, out.parent, pars)  # noqa: E731
-        t2d = lambda: ec.tile_executor(old, out.parent, pars)  # noqa: E731
-        lib = lambda: a + a.permute(P2) + a.permute(P3) + a.permute(P4)  # noqa: E731
-        need, four = 2 * a.numel() * a.element_size(), 5 * a.numel() * a.element_size()
-        what = (f"tile_executor four-permute sum 96^4 {dt} [multi_axis], bound "
-                f"{bound(need)['bound_ms']:.4f} ms (needed bytes), {bound(four)['bound_ms']:.4f} ms "
-                f"(four reads, one write); tile_t2d_v<4> in card_scale {PERMUTE_SUM_T2D_MS} ms")
-        report(f"{what}, called eagerly", need, _turns(kernel, plain, reps=20, library=lib))
-        report(f"{what}, device time (CUDA graph)", need,
-               _turns(kernel, plain, reps=10, library=lib, graph=True))
-        report(f"four-permute sum 96^4 {dt}: multi_axis (kernel) against tile_t2d_v (plain), "
-               f"device time (CUDA graph)", need, _turns(kernel, t2d, reps=10, graph=True))
-
-
-def k1_times(dev, ctrl, rng, batch, card, *, rho, alpha, iters) -> dict:
-    """Phase 6: the step, captured and eagerly with its first call
-    (``mpc_solves``) and as device time alone (``step_device_ms``), with K1
-    on and off in turns; then K1 at the main
-    path's shape against its plain version and six cuBLAS products of the
-    same shapes under IEEE FP32 (how fast the library runs this product in
-    FP32; no single call computes ADMM), in turns; then K1's designs
-    (``benchmarks/exp_admm.py``). Returns K1's times and bound for the JSON
-    line."""
-    from strided_tpu_torch import config
-    from strided_tpu_torch.bench import mpc_solves, step_device_ms
-    from strided_tpu_torch.benchmarks import exp_admm
-    from strided_tpu_torch.mpc import fused_admm as fa
-
-    def step(fused: bool, timer) -> float:
-        config.set_config(fused_admm=fused)
-        try:
-            return timer(fused)
-        finally:
-            config.set_config(fused_admm=True)
-
-    # in turns (kernel, plain, plain, kernel) so drift hits both sides alike
-    turns = (True, False, False, True)
-    rows = [step(f, lambda fused: mpc_solves(dev, batch=batch)) for f in turns]
-    device = [step(f, lambda fused: step_device_ms(dev, batch=batch)) for f in turns]
-    for what, (k1_, p1, p2, k2) in (
-            ("captured", [r["captured_ms"] for r in rows]),
-            ("eagerly", [r["eager_ms"] for r in rows]),
-            ("device time (chained steps in one CUDA graph)", device)):
-        print(f"[6 times] step batch={batch} {what}: kernel path {k1_:.4f}/{k2:.4f} ms "
-              f"({batch / (min(k1_, k2) * 1e-3):.0f} solves/s), plain ADMM loop "
-              f"{p1:.4f}/{p2:.4f} ms ({batch / (min(p1, p2) * 1e-3):.0f} solves/s) [{card}]")
-    k1_, p1, p2, k2 = (r["first_call_ms"] for r in rows)
-    print(f"[6 times] step batch={batch} first call (warm-up, capture, instantiation, one "
-          f"replay): kernel path {k1_:.1f}/{k2:.1f} ms, plain ADMM loop {p1:.1f}/{p2:.1f} ms "
-          f"[{card}]")
-    x = torch.as_tensor(rng.uniform(-0.3, 0.3, (batch, 12)), dtype=torch.float32, device=dev)
-    args = _admm_inputs(ctrl, x)
-    kw = dict(rho=rho, alpha=alpha, iters=iters)
-    ieee = config.matmul_precision_scope
-    rhs = torch.randn(args[0].shape, device=dev, generator=torch.Generator(dev).manual_seed(4))
-    kernel = lambda: fa.fused_admm(*args, **kw)  # noqa: E731
-    plain = ieee(lambda: fa.fused_admm_reference(*args, **kw))
-    products = ieee(lambda: [torch.matmul(rhs, args[2]) for _ in range(iters)])
-    times = _turns(kernel, plain, reps=100, library=products)
-    B, D = args[0].shape
-    # the products only: 2 * B * D^2 flops an iteration (the clip and the
-    # updates add ~2%); g, z0 and the result, S, lo and hi in f32
-    k1_bound = bound(4 * (3 * B * D + D * D + 2 * D), 2 * iters * B * D * D)
-    _report(6, f"fused_admm B={B} D={D} iters={iters}, bound {k1_bound['bound_ms']:.4f} ms "
-            f"({k1_bound['bound_by']}); one PyTorch call: {iters} torch.matmul "
-            f"({B}, {D}) @ ({D}, {D}) IEEE FP32", "GFLOP/s", 2 * iters * B * D * D, times, card)
-    rows = exp_admm.run()  # K1 and the tile designs it was chosen over
-    for row in rows:
-        print(f"[6 K1 designs] {json.dumps(row)} [{card}]")
-    if not all(r["ok"] for r in rows):
-        raise RuntimeError("a K1 tile design disagreed with the plain version")
-    return {"ms": times[0], "plain_ms": times[1], **k1_bound, "product_ms": times[3]}
-
-
 def wide_qp_check(dev) -> None:
     """Phase 7: D = 600 > MAX_D must take the loop path, not raise."""
     from strided_tpu_torch import config, qp_solve
@@ -777,7 +542,7 @@ def _bf16_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a.to(torch.bfloat16).abs(), b.to(torch.bfloat16).abs())
 
 
-def precision_phase(dev, card) -> None:
+def precision_phase(dev) -> None:
     """Phase 16: the precision name "default" and what takes it (see the
     module docstring)."""
     import dataclasses
@@ -790,7 +555,6 @@ def precision_phase(dev, card) -> None:
     from strided_tpu_torch.entry import make_controller
     from strided_tpu_torch.mpc import fused_admm as fa
 
-    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(16)
     randn = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
 
@@ -841,11 +605,11 @@ def precision_phase(dev, card) -> None:
     coarse = dataclasses.replace(ctrl, admm_iters=20, admm_coarse_iters=12)
     fa.LAUNCHES = 0
     captures = cap.CAPTURES
-    (xs, _us), first_ms, capture_ms = matches_eager(
+    (xs, _us), _, _ = matches_eager(
         lambda: closed_loop(coarse, model, x, 10, 0.02))
     print(f"[16 precision] closed_loop batch 16384, 10 steps, admm_coarse_iters 12 of 20: "
           f"captured == eager bit for bit, {cap.CAPTURES - captures} capture, K1 "
-          f"x{fa.LAUNCHES}, first call {first_ms:.1f} ms (capture {capture_ms:.1f}) [{card}]")
+          f"x{fa.LAUNCHES}")
     if fa.LAUNCHES != 0 or cap.CAPTURES != captures + 1 or not torch.isfinite(xs).all():
         raise RuntimeError("the coarse closed loop launched K1, took no capture or diverged")
 
@@ -873,15 +637,12 @@ def precision_phase(dev, card) -> None:
     proc = subprocess.run([sys.executable, "-m", "strided_tpu_torch.bench"],
                           capture_output=True, text=True, timeout=400)
     last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
-    print(f"[16 precision] python -m strided_tpu_torch.bench exit {proc.returncode}; its "
-          f"stderr:")
-    for line in proc.stderr.strip().splitlines()[-40:]:
-        print(f"    {line}")
-    print(f"[16 precision] its last line: {last}")
     head = json.loads(last) if last.startswith("{") else {}
+    print(f"[16 precision] python -m strided_tpu_torch.bench exit {proc.returncode}; its last "
+          f"line's keys {sorted(head)}")
     if proc.returncode != 0 or sorted(head) != ["metric", "unit", "value", "vs_baseline"]:
-        raise RuntimeError("python -m strided_tpu_torch.bench failed or printed no headline")
-    print(f"[16 precision] {time.perf_counter() - t0:.1f} s")
+        raise RuntimeError(f"python -m strided_tpu_torch.bench failed or printed no headline:\n"
+                           f"{proc.stderr[-3000:]}")
 
 
 def wide_body(a, b):
@@ -1074,9 +835,9 @@ def _unaligned(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def engine_phases(dev, card):
-    """Phases 8 and 9: the strided engine's main path and its three kernels.
-    Returns the kernels' entries for the JSON line."""
+def engine_phases(dev) -> None:
+    """Phases 8 and 9: the strided engine's main path and its three kernels
+    (see the module docstring)."""
     import strided_tpu_torch as st
     from strided_tpu_torch.core import ewise, executor_cuda as ec
     from strided_tpu_torch.core import kernels_special as ks, lazy_expr as le
@@ -1086,15 +847,13 @@ def engine_phases(dev, card):
     randn = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
     randi = lambda *shape: torch.randint(-9, 9, shape, device=dev, dtype=torch.int32,  # noqa: E731
                                          generator=gen)
-    err = {"pair_axpby": 0.0, "stream_reduce": 0.0, "tile_executor": 0.0}
 
-    def check(kernel, what, got, want, atol=0.0):
+    def check(what, got, want, atol=0.0):
         torch.cuda.synchronize()
         e = _max_err(got, want)
         print(f"[8 engine] {what}: |kernel - plain| {e:.3e} (limit {atol:g})")
         if not e <= atol:
             raise RuntimeError(f"{what}: kernel off its plain version by {e:.3e} > {atol:g}")
-        err[kernel] = max(err[kernel], e)
 
     def expect(what, record, want):
         if record != want:
@@ -1119,7 +878,7 @@ def engine_phases(dev, card):
         le.LAST_EXPR_DISPATCH = ""
         got = st.to_array(expr)
         expect(spelling, le.LAST_EXPR_DISPATCH, "pair-kernel")
-        check("pair_axpby", f"{spelling} {n}^2 {dt}", got, ks.pair_reference(a, **plain_kw[spelling]))
+        check(f"{spelling} {n}^2 {dt}", got, ks.pair_reference(a, **plain_kw[spelling]))
     # K3, through the reductions: the identity sums and max, and smean, whose
     # 1/n rides in the map (a program); each with the kernel the launcher
     # reports it ran
@@ -1144,24 +903,24 @@ def engine_phases(dev, card):
         before = dict(sr.PATHS)
         got = st.materialize(call())
         expect(what, ks.LAST_REDUCE_DISPATCH, "stream-kernel")
-        check("stream_reduce", what, got, want, atol)
+        check(what, got, want, atol)
         expect(f"{what}: K3's path", [q for q in sr.PATHS if sr.PATHS[q] != before[q]], [path])
     # K4, through permutedims_into, smap and (forced) mapreducedim_into
     out = st.strided(torch.empty(n, n, device=dev))
     ec.LAST_PLAN.clear()
     got = st.materialize(st.permutedims_into(out, v, (1, 0)))
     expect("permutedims_into 8192^2", bool(ec.LAST_PLAN), True)
-    check("tile_executor", "permutedims_into(8192^2, (1, 0))", got, a.T)
+    check("permutedims_into(8192^2, (1, 0))", got, a.T)
     y = randn(64, 128, 64, 128)
     perm = (1, 3, 0, 2)
     out4 = st.strided(torch.empty(tuple(y.shape[p] for p in perm), device=dev))
     got = st.materialize(st.permutedims_into(out4, st.strided(y), perm))
     expect("rank-4 permute", bool(ec.LAST_PLAN), True)
-    check("tile_executor", f"permutedims_into(64x128x64x128, {perm})", got, y.permute(perm))
+    check(f"permutedims_into(64x128x64x128, {perm})", got, y.permute(perm))
     w = randn(n, n)
     got = st.materialize(st.smap(lambda p, q: p * 3 + q, st.transpose(v), st.strided(w)))
     expect("smap(x*3 + y, v.T, w)", bool(ec.LAST_PLAN), True)
-    check("tile_executor", "smap(x*3 + y, v.T, w) 8192^2", got, a.T * 3 + w)
+    check("smap(x*3 + y, v.T, w) 8192^2", got, a.T * 3 + w)
     old_cfg = st.get_config()
     st.set_config(kernel_reductions=True)
     try:
@@ -1169,7 +928,7 @@ def engine_phases(dev, card):
         ov = st.broadcast_to(st.strided(old), (8192, 4096))
         res = st.mapreducedim_into(lambda t: t, torch.add, lambda o: 3 * o, ov, st.strided(xi))
         expect("initop reduction", bool(ec.LAST_PLAN), True)
-        check("tile_executor", "3*old + sum(int32 8192x4096, axis=0)", res.parent.reshape(1, 4096),
+        check("3*old + sum(int32 8192x4096, axis=0)", res.parent.reshape(1, 4096),
               3 * old + xi.sum(0, keepdim=True, dtype=torch.int32))
     finally:
         st.set_config(kernel_reductions=old_cfg.kernel_reductions)
@@ -1189,91 +948,23 @@ def engine_phases(dev, card):
     coverage_checks(dev, gen)
     multi_axis_checks(dev, gen)
 
-    # phase 9: each wrapper against its plain version, in turns
-    def report(what, nbytes, times):
-        _report(9, what, "GB/s", nbytes, times, card)
-
-    pair_times = {}
-    for n in (1024, 2048, 4000, 8192):
-        a = randn(n, n)
-        kw = dict(scale_mode="div", scale=2.0)
-        pair_times[n] = _turns(lambda: ks.pair_axpby(a, **kw), lambda: ks.pair_reference(a, **kw),
-                               reps=50 if n >= 4000 else 200,
-                               library=(lambda: torch.lerp(a, a.T, 0.5)) if n == 8192 else None)
-        report(f"pair_axpby (a + a.T)/2 {n}^2 f32 (one call: torch.lerp(a, a.T, 0.5))",
-               2 * 4 * n * n, pair_times[n])
-    for n in (1024, 4000, 8192):  # through the entry point: host work included
-        a = randn(n, n)
-        v = st.strided(a)
-        st.to_array((v + st.transpose(v)) / 2)
-        report(f"end to end st.to_array((v + v.T) / 2) {n}^2 f32 "
-               f"[{le.LAST_EXPR_DISPATCH}]", 2 * 4 * n * n,
-               _turns(lambda: st.to_array((v + st.transpose(v)) / 2), lambda: (a + a.T) / 2,
-                      reps=50))
-    red_t, k3_cases = reduce_times(dev, gen, report)
-    map_t, t_times = map_times(dev, gen, report, w)
-    multi_axis_times(dev, gen, report)
-    vy = st.strided(y)
-    ins4 = [st.permutedims(vy, perm)]
-    plan4 = ec.make_plan(lambda t: t, None, None, out4.shape, out4, ins4)
-    report(f"tile_executor permute {perm} 64x128x64x128 f32", 2 * 4 * y.numel(),
-           _turns(lambda: ec.tile_executor(plan4, out4.parent, [vy.parent]),
-                  lambda: ec.tile_executor_reference(plan4, out4.parent, [vy.parent]), reps=50))
-    st.set_config(kernel_reductions=True)
-    try:
-        ov = st.broadcast_to(st.strided(old), (8192, 4096))
-        planr = ec.make_plan(lambda t: t, torch.add, lambda o: 3 * o, (8192, 4096), ov,
-                             [st.strided(xi)])
-    finally:
-        st.set_config(kernel_reductions=old_cfg.kernel_reductions)
-    kernel = lambda: ec.tile_executor(planr, ov.parent, [xi.reshape(-1)])  # noqa: E731
-    plain = lambda: ec.tile_executor_reference(planr, ov.parent, [xi.reshape(-1)])  # noqa: E731
-    report("tile_executor 3*old + sum axis 0, int32 8192x4096, called eagerly", 4 * xi.numel(),
-           _turns(kernel, plain, reps=50))
-    report("tile_executor 3*old + sum axis 0, int32 8192x4096, device time (CUDA graph)",
-           4 * xi.numel(), _turns(kernel, plain, reps=20, graph=True))
-
-    def entry(name, replaces, times, nbytes):
-        eager, device = times
-        return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-                "ms": eager[0], "plain_ms": eager[1], **bound(nbytes),
-                "library_ms": eager[3] if len(eager) > 3 else None,
-                **({} if device is None else {
-                    "device_ms": device[0], "device_plain_ms": device[1],
-                    "device_library_ms": device[3] if len(device) > 3 else None})}
-
-    n2 = 8192 * 8192
-    smap_bound = bound(3 * 4 * n2)
-    map_e, map_d = map_t
-    return [entry("pair_axpby", "strided_tpu/core/kernels_special.py:147", (pair_times[8192], None),
-                  2 * 4 * n2),
-            {**entry("stream_reduce", "strided_tpu/core/kernels_special.py:511", red_t,
-                     4 * n2 + 4 * 8192), "cases": k3_cases},
-            {**entry("tile_executor", "strided_tpu/core/executor_pallas.py:137", t_times,
-                     2 * 4 * n2),
-             "map_ms": map_e[0], "map_plain_ms": map_e[1], "map_bound_ms": smap_bound["bound_ms"],
-             "map_library_ms": map_e[3], "map_device_ms": map_d[0],
-             "map_device_plain_ms": map_d[1], "map_device_library_ms": map_d[3]}]
+    reduce_checks(dev, gen)
+    map_checks(dev, gen, w)
 
 
-def reduce_times(dev, gen, report, n=8192):
-    """Phase 9, K3: the f32 axis-0 sum (the JSON line's case), the axis-0
+def reduce_checks(dev, gen, n=8192):
+    """Phase 9, K3 at 8192^2 off phase 8's cases: the f32 axis-0 sum and
     max, the int32 and bf16 sums; then programs: ``smean(v, 0)`` in f32 and
     bf16 through the public entry point, the wrapper on ``t*0.5 + 1``, bodies
     of 3 and 5 registers (the scalar interpreter), an int32 ``t*3 + 1``, and
-    an instruction ladder (bodies of 1, 2, 3 and 9 instructions; the
-    identity sum is its 0); then ``t*0.5 + 1``, the 3-register body, the
-    9-instruction rung and the 5-register body once more on the same values
-    on a base one element past a 16-byte boundary, where the kernel takes
-    one column a thread. Each is checked against its plain version, with
-    the kernel and width the launcher reports it ran (8 columns a thread
-    wherever ``stream_reduce.split`` gives them, and for ``t*0.5 + 1`` and
-    ``st.smean`` in f32 always), then timed in turns
-    against it and, where one call computes the same function, that call:
-    called eagerly (as every kernel of the JSON line is timed) and as device
-    time alone through CUDA graphs, with the host time a call beside them.
-    Returns the f32 sum's eager and device times and every case's times."""
+    an instruction ladder (bodies of 1, 2, 3 and 9 instructions); then
+    ``t*0.5 + 1``, the 3-register body, the 9-instruction rung and the
+    5-register body once more on the same values on a base one element past
+    a 16-byte boundary, where the kernel takes one column a thread. Each is
+    checked against its plain version, with the kernel and width the
+    launcher reports it ran (8 columns a thread wherever
+    ``stream_reduce.split`` gives them, and for ``t*0.5 + 1`` and
+    ``st.smean`` in f32 always)."""
     import strided_tpu_torch as st
     from strided_tpu_torch.core import ewise, stream_reduce as sr
 
@@ -1289,41 +980,35 @@ def reduce_times(dev, gen, report, n=8192):
               3: ("(t*0.5 + 1)*t", lambda t: (t * 0.5 + 1) * t),
               9: ("((t*3 + 1)*t - t*2) * (|t| + 1) + 1",
                   lambda t: ((t * 3 + 1) * t - t * 2) * (abs(t) + 1) + 1)}
-    cases = [  # (name, operand, program, fold, one call or None, entry-point call or None)
-        (f"sum axis 0, {n}^2 f32", a, ident[f32], sr.RED_SUM, lambda: a.sum(0), None),
-        (f"max axis 0, {n}^2 f32", a, ident[f32], sr.RED_MAX, lambda: a.amax(0), None),
-        (f"sum axis 0, int32 {n}x{n // 2}", ai, ident[i32], sr.RED_SUM,
-         lambda: ai.sum(0, dtype=torch.int32), None),
-        (f"sum axis 0, {n}^2 bf16", a16, ident[bf16], sr.RED_SUM, lambda: a16.sum(0), None),
-        (f"sum axis 0 of t*0.5 + 1, {n}^2 f32", a, prog(ladder[2][1]), sr.RED_SUM, None, None),
-        (f"st.smean(v, 0), {n}^2 f32", a, mean[f32], sr.RED_SUM, lambda: a.mean(0),
-         lambda: st.smean(va, 0)),
-        (f"st.smean(v, 0), {n}^2 bf16", a16, mean[bf16], sr.RED_SUM, lambda: a16.mean(0),
+    cases = [  # (name, operand, program, fold, entry-point call or None)
+        (f"sum axis 0, {n}^2 f32", a, ident[f32], sr.RED_SUM, None),
+        (f"max axis 0, {n}^2 f32", a, ident[f32], sr.RED_MAX, None),
+        (f"sum axis 0, int32 {n}x{n // 2}", ai, ident[i32], sr.RED_SUM, None),
+        (f"sum axis 0, {n}^2 bf16", a16, ident[bf16], sr.RED_SUM, None),
+        (f"sum axis 0 of t*0.5 + 1, {n}^2 f32", a, prog(ladder[2][1]), sr.RED_SUM, None),
+        (f"st.smean(v, 0), {n}^2 f32", a, mean[f32], sr.RED_SUM, lambda: st.smean(va, 0)),
+        (f"st.smean(v, 0), {n}^2 bf16", a16, mean[bf16], sr.RED_SUM,
          lambda: st.smean(va16, 0)),
         (f"sum axis 0 of (t+1)*(t+2) + t*3, {n}^2 f32", a,
-         prog(lambda t: (t + 1) * (t + 2) + t * 3), sr.RED_SUM, None, None),
+         prog(lambda t: (t + 1) * (t + 2) + t * 3), sr.RED_SUM, None),
         (f"sum axis 0 of the wide body, {n}^2 f32", a, prog(lambda t: wide_body(t, t)),
-         sr.RED_SUM, None, None),
+         sr.RED_SUM, None),
         (f"sum axis 0 of t*3 + 1, int32 {n}x{n // 2}", ai, prog(lambda t: t * 3 + 1, i32),
-         sr.RED_SUM, None, None),
-    ] + [(f"sum axis 0 of {name}, {n}^2 f32 (ladder)", a, prog(f), sr.RED_SUM, None, None)
+         sr.RED_SUM, None),
+    ] + [(f"sum axis 0 of {name}, {n}^2 f32 (ladder)", a, prog(f), sr.RED_SUM, None)
          for k, (name, f) in ladder.items() if k != 2]
     au = _unaligned(a)
     cases += [(f"sum axis 0 of {name}, {n}^2 f32, one column a thread (unaligned base)", au,
-               prog(f), sr.RED_SUM, None, None)
+               prog(f), sr.RED_SUM, None)
               for name, f in (("t*0.5 + 1", ladder[2][1]),
                               ("(t+1)*(t+2) + t*3", lambda t: (t + 1) * (t + 2) + t * 3),
                               (ladder[9][0], ladder[9][1]),
                               ("the wide body", lambda t: wide_body(t, t)))]
-    rungs = {cases[0][0], cases[4][0], *(c[0] for c in cases if "(ladder)" in c[0])}
-    out, first, steps = {}, None, []
-    for name, x, p, red, lib, call in cases:
-        kernel = call or (lambda x=x, p=p, red=red: sr.stream_reduce(x, p, red))
-        plain = lambda x=x, p=p, red=red: sr.stream_reduce_reference(x, p, red)  # noqa: E731
+    for name, x, p, red, call in cases:
         before = dict(sr.PATHS)
-        k = kernel()
+        k = call() if call else sr.stream_reduce(x, p, red)
         k = k if isinstance(k, torch.Tensor) else st.materialize(k).reshape(-1)
-        want = plain()
+        want = sr.stream_reduce_reference(x, p, red)
         torch.cuda.synchronize()
         ran = [q for q in sr.PATHS if sr.PATHS[q] != before[q]]
         e = _max_err(k, want)
@@ -1346,38 +1031,14 @@ def reduce_times(dev, gen, report, n=8192):
         if not e <= lim or ran != [path]:
             raise RuntimeError(f"stream_reduce {name}: off its plain version by {e:.3e}, or ran "
                                f"{ran}, not {path}")
-        eager = _turns(kernel, plain, reps=100, library=lib)
-        device = _turns(kernel, plain, reps=20, library=lib, graph=True)
-        host = _host_ms(kernel)
-        nbytes = x.element_size() * x.numel() + p.out_dtype.itemsize * x.shape[1]
-        what = f"stream_reduce {name}, bound {bound(nbytes)['bound_ms']:.4f} ms"
-        report(f"{what}, called eagerly (host time {host:.4f} ms a call)", nbytes, eager)
-        report(f"{what}, device time (CUDA graph)", nbytes, device)
-        out[name] = {"ms": eager[0], "device_ms": device[0], "host_ms": host,
-                     "plain_ms": eager[1], "device_plain_ms": device[1],
-                     "library_ms": eager[3] if lib else None,
-                     "device_library_ms": device[3] if lib else None,
-                     "bound_ms": bound(nbytes)["bound_ms"], "path": path}
-        first = first or (eager, device)
-        if name in rungs:
-            steps.append((len(cp.instrs), cp.n_reg, device[0]))
-    programs = [(c, t) for c, _r, t in steps if c > 0]
-    slope, icpt = np.polyfit(*np.array(programs).T, 1)
-    print(f"[9 stream_reduce] ladder (instructions, registers, device ms), f32 {n}^2 sums: "
-          f"{sorted(steps)}; least squares over the programs {icpt:.4f} ms + {slope:.4f} ms "
-          f"per instruction")
-    return first, out
 
 
-def map_times(dev, gen, report, w, n=8192):
+def map_checks(dev, gen, w, n=8192):
     """Phase 9, K4's maps on the staged two-input 8192^2 layout (v.T, w):
-    the instruction ladder (bodies of 0, 1, 3 and 9 instructions), a bf16
+    the instruction ladder (bodies of 0, 1, 2, 3 and 9 instructions), a bf16
     and an int32 ``where`` map, the wide body (more than ewise.CREG
     registers: the scalar interpreter), each exact against its plain version
-    and timed in turns, eagerly and as device time (CUDA graphs); then the
-    transposed copy. Returns the smap's times (with ``torch.add(w, a.T,
-    alpha=3)`` as its one call) and the copy's (with ``a.T.contiguous()``),
-    each as (eager, device)."""
+    on the interpreter its body needs."""
     import strided_tpu_torch as st
     from strided_tpu_torch.core import ewise, executor_cuda as ec
 
@@ -1396,7 +1057,6 @@ def map_times(dev, gen, report, w, n=8192):
     cases += [("bf16 p*3 + q", lambda p, q: p * 3 + q, a.bfloat16(), w.bfloat16(), torch.bfloat16),
               ("int32 where(p < q, p*2, q)", lambda p, q: torch.where(p < q, p * 2, q),
                (a * 100).int(), (w * 100).int(), torch.int32)]
-    smap, ladder = None, []
     for name, f, x, y, dt in cases:
         out = st.strided(torch.empty(n, n, device=dev, dtype=dt))
         vx, vy = st.strided(x), st.strided(y)
@@ -1415,89 +1075,6 @@ def map_times(dev, gen, report, w, n=8192):
               f"registers, {ran} interpreter: |kernel - plain| {e:.3e} (limit 0)")
         if e != 0.0 or ran != [path]:
             raise RuntimeError(f"map {name}: off its plain version by {e:.3e}, or path {ran}")
-        lib = (lambda: torch.add(y, x.T, alpha=3)) if "smap" in name else None
-        kernel = lambda: ec.tile_executor(plan, out.parent, parents)  # noqa: E731
-        plain = lambda: ec.tile_executor_reference(plan, out.parent, parents)  # noqa: E731
-        eager = _turns(kernel, plain, reps=10, library=lib)
-        device = _turns(kernel, plain, reps=10, library=lib, graph=True)
-        nbytes = 3 * x.element_size() * x.numel()
-        what = f"tile_executor map {name} [{path}], bound {bound(nbytes)['bound_ms']:.4f} ms"
-        report(f"{what}, called eagerly", nbytes, eager)
-        report(f"{what}, device time (CUDA graph)", nbytes, device)
-        if dt == torch.float32 and path == "amortized":
-            ladder.append((len(body.instrs), device[0]))
-        if "smap" in name:
-            smap = (eager, device)
-    if len(ladder) > 1:
-        xs, ys = np.array([c for c, _ in ladder], float), np.array([t for _, t in ladder])
-        slope, icpt = np.polyfit(xs, ys, 1)
-        print(f"[9 tile_executor] ladder (instructions, device ms): {ladder}; least squares "
-              f"{icpt:.4f} ms + {slope:.4f} ms per instruction")
-    out = st.strided(torch.empty(n, n, device=dev))
-    va = st.strided(a)
-    plan = ec.make_plan(lambda t: t, None, None, out.shape, out, [st.transpose(va)])
-    kernel = lambda: ec.tile_executor(plan, out.parent, [va.parent])  # noqa: E731
-    plain = lambda: ec.tile_executor_reference(plan, out.parent, [va.parent])  # noqa: E731
-    lib = lambda: a.T.contiguous()  # noqa: E731
-    copy = (_turns(kernel, plain, reps=50, library=lib),
-            _turns(kernel, plain, reps=20, library=lib, graph=True))
-    report("tile_executor transpose copy 8192^2 f32 (one call: a.T.contiguous()), called eagerly",
-           2 * 4 * a.numel(), copy[0])
-    report("tile_executor transpose copy 8192^2 f32, device time (CUDA graph)",
-           2 * 4 * a.numel(), copy[1])
-    return smap, copy
-
-
-def _turns(kernel, plain, reps, warmup=5, library=None, graph=False):
-    """Kernel, plain, plain, kernel: ``(best kernel ms, best plain ms, all
-    four)``. With ``library`` (one PyTorch call computing the same function,
-    the JSON line's yardstick) the turns are kernel, plain, library,
-    library, plain, kernel, and its best time is a fourth item. ``graph``:
-    device time alone (``bench.graph_ms``), else host and device
-    (``bench.cuda_ms``)."""
-    from strided_tpu_torch.bench import cuda_ms, graph_ms
-
-    def ms(f):
-        return graph_ms(f, reps=reps) if graph else cuda_ms(f, reps=reps, warmup=warmup)
-
-    if library is None:
-        k1, p1, p2, k2 = (ms(f) for f in (kernel, plain, plain, kernel))
-        return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
-    k1, p1, l1, l2, p2, k2 = (ms(f) for f in (kernel, plain, library, library, plain, kernel))
-    return min(k1, k2), min(p1, p2), (k1, k2, p1, p2), min(l1, l2)
-
-
-def _host_ms(fn, reps=200) -> float:
-    """Host milliseconds a call of ``fn()`` takes to enqueue its work (no
-    synchronization inside the loop): where this is longer than the device
-    time, an eager caller waits for the host."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    ms = (time.perf_counter() - t) / reps * 1e3
-    torch.cuda.synchronize()
-    return ms
-
-
-def _library(what, call, reps=50) -> float:
-    """The time of one PyTorch call that computes a kernel's function: the
-    yardstick of the JSON line, used nowhere in the port."""
-    from strided_tpu_torch.bench import cuda_ms
-
-    ms = cuda_ms(call, reps=reps)
-    print(f"[library] {what}: {ms:.4f} ms")
-    return ms
-
-
-def _report(phase, what, unit, amount, times, card):
-    """One timing line; ``amount / ms / 1e6`` in ``unit`` (GB/s or GFLOP/s)."""
-    k, p, (k1, k2, p1, p2) = times[:3]
-    lib = f", one PyTorch call {times[3]:.4f} ms" if len(times) > 3 else ""
-    print(f"[{phase} times] {what}: kernel {k1:.4f}/{k2:.4f} ms ({amount / k / 1e6:.0f} {unit}), "
-          f"plain {p1:.4f}/{p2:.4f} ms ({amount / p / 1e6:.0f} {unit}){lib} [{card}]")
 
 
 def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor", "exp_sym",
@@ -1532,7 +1109,7 @@ def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor", "exp_s
 ATOL_MUL64 = 1e-2  # f32 mul 8192^2 vs f64: IEEE ~2e-3 at most, TF32 ~4e-2 typical
 
 
-def linalg_phase(dev, card) -> None:
+def linalg_phase(dev) -> None:
     """Phase 10: the linalg layer at full size, through its entry points."""
     import strided_tpu_torch as st
     from strided_tpu_torch import config
@@ -1608,32 +1185,29 @@ def linalg_phase(dev, card) -> None:
     if ks.LAUNCHES < 1:
         raise RuntimeError("axpby did not launch K2 on the linalg path")
 
-    C = st.strided(c)
-    _report(10, "mul f32 8192^2 alpha=1.5 beta=-0.5 (entry point vs plain)", "GFLOP/s",
-            2 * n ** 3, _turns(lambda: st.mul(C, v, st.strided(b), alpha=alpha, beta=beta),
-                               ieee(lambda: alpha * (a @ b) + beta * c), reps=10, warmup=2), card)
-    _report(10, "axpby(0.5, transpose(v), 0.5, v) 8192^2 (entry point vs plain)", "GB/s",
-            2 * 4 * n * n, _turns(lambda: st.axpby(0.5, st.transpose(v), 0.5, v),
-                                  lambda: 0.5 * a.T + 0.5 * a, reps=50), card)
 
-
-def probe_phases(dev, card):
-    """Phase 11: the transpose-pair probes and their four kernels. Returns
-    the kernels' entries for the JSON line."""
-    import subprocess
-    import sys
-
-    from strided_tpu_torch.benchmarks import exp_pair_rect as er, exp_sym as es
+def probe_phases(dev) -> None:
+    """Phase 11: the transpose-pair probes and their four kernels (see the
+    module docstring)."""
+    from strided_tpu_torch.benchmarks import exp_pair_rect as er, exp_sym as es, same
 
     for counts in (es.LAUNCHES, er.LAUNCHES):
         for k in counts:
             counts[k] = 0
-    rcs = (es.main([]), er.main([]))  # one JSON line a variant
+    # every variant of both scripts on the matrix their ``run`` draws (seed 0,
+    # their default n), held to its plain result as ``run`` holds it
+    x = torch.randn(8192, 8192, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    bad = [name for name, (fn, want) in es.variants().items() if not es.agrees(fn, want, x)]
+    x = torch.randn(er.N, er.N, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    nans = torch.full_like(x, float("nan"))
+    bad += [name for name, (fn, want, _bytes) in er.variants(er.N).items()
+            if not same(fn(x, nans.clone()), want(x, nans))]
     torch.cuda.synchronize()
     launches = {**es.LAUNCHES, **er.LAUNCHES}
-    print(f"[11 probes] launches in the probes' run: {launches} [{card}]")
-    if rcs != (0, 0):
-        raise RuntimeError(f"a probe variant disagreed with its plain result (exit codes {rcs})")
+    print(f"[11 probes] every variant of exp_sym and exp_pair_rect equal to its plain result: "
+          f"{not bad}; launches {launches}")
+    if bad:
+        raise RuntimeError(f"probe variants off their plain result: {bad}")
     for name, count in launches.items():
         if count < 1:
             raise RuntimeError(f"{name} was not launched by the probes")
@@ -1641,39 +1215,27 @@ def probe_phases(dev, card):
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(8192, 8192, device=dev, generator=gen)
     xr = torch.randn(er.N, er.N, device=dev, generator=gen)
-    nans = torch.full_like(xr, float("nan"))
-    out_k, out_p = nans.clone(), nans.clone()  # NaN-filled once, outside the timed loops
-    # the one PyTorch call of each function (the JSON line's library_ms),
-    # timed inside the kernel's turns
-    lerp = lambda: torch.lerp(x, x.T, 0.5)  # noqa: E731
-    clone = lambda: x.clone()  # noqa: E731
-    # each case: (kernel, shape, bytes, input, kernel(out), plain(out), the
-    # one call or None); the timed calls take the default out (a new tensor;
-    # rect_pairs': out_k and out_p)
-    cases = [("transpose_tiles", f"{th}x{tw}", 2 * 4 * x.numel(), x,
-              lambda out=None, th=th, tw=tw: es.transpose_tiles(x, th, tw, out=out),
-              lambda out=None: es.transpose_reference(x), lambda: x.T.contiguous())
+    # each case: (kernel, shape, input, kernel(out), plain(out))
+    cases = [("transpose_tiles", f"{th}x{tw}", x,
+              lambda out, th=th, tw=tw: es.transpose_tiles(x, th, tw, out=out),
+              lambda out: es.transpose_reference(x))
              for th, tw in ((32, 32), (64, 64), *es.RECT_TILES)]
-    cases += [("sym_two_read", f"{t}", 3 * 4 * x.numel(), x,
-               lambda out=None, t=t: es.sym_two_read(x, t, out=out),
-               lambda out=None: es.sym_reference(x), lerp) for t in es.SQUARE_TILES]
+    cases += [("sym_two_read", f"{t}", x, lambda out, t=t: es.sym_two_read(x, t, out=out),
+               lambda out: es.sym_reference(x)) for t in es.SQUARE_TILES]
     for t in es.SQUARE_TILES:
-        for label, kw, plain, library in (
-                ("full", {}, lambda out=None: es.sym_reference(x), lerp),
-                ("copy", dict(do_transpose=False), lambda out=None: x.clone(), clone),
-                ("full skipdiag", dict(skip_diag=True), lambda out=None: es.sym_reference(x), lerp),
+        for label, kw, plain in (
+                ("full", {}, lambda out: es.sym_reference(x)),
+                ("copy", dict(do_transpose=False), lambda out: x.clone()),
+                ("full skipdiag", dict(skip_diag=True), lambda out: es.sym_reference(x)),
                 ("copy skipdiag", dict(do_transpose=False, skip_diag=True),
-                 lambda out=None: x.clone(), clone)):
-            cases.append(("pair_tiles", f"{t} {label}", 2 * 4 * x.numel(), x,
-                          lambda out=None, t=t, kw=kw: es.pair_tiles(x, t, out=out, **kw), plain,
-                          library))
+                 lambda out: x.clone())):
+            cases.append(("pair_tiles", f"{t} {label}", x,
+                          lambda out, t=t, kw=kw: es.pair_tiles(x, t, out=out, **kw), plain))
     for T in er.TILES:
-        nbytes = len(er.rect_worklist(er.N, T)) * 4 * T * 2 * T * 4
-        cases.append(("rect_pairs", f"{T}x{2 * T}", nbytes, xr,
-                      lambda out=out_k, T=T: er.rect_pairs(xr, out, T)[0],
-                      lambda out=out_p, T=T: er.rect_pairs_reference(xr, out, T)[0], None))
-    best, err = {}, {}
-    for name, shape, nbytes, src, kernel, plain, library in cases:
+        cases.append(("rect_pairs", f"{T}x{2 * T}", xr,
+                      lambda out, T=T: er.rect_pairs(xr, out, T)[0],
+                      lambda out, T=T: er.rect_pairs_reference(xr, out, T)[0]))
+    for name, shape, src, kernel, plain in cases:
         # written into a NaN-filled tensor made just before the call: an
         # element the kernel skips stays NaN and fails the comparison
         got = kernel(torch.full_like(src, float("nan")))
@@ -1684,45 +1246,6 @@ def probe_phases(dev, card):
         if e != 0.0:
             raise RuntimeError(f"{name} {shape}: kernel off its plain version by {e:.3e}")
         del got, want
-        err[name] = max(err.get(name, 0.0), e)
-        times = _turns(kernel, plain, reps=20, library=library)
-        _report(11, f"{name} {shape}", "GB/s", nbytes, times, card)
-        if name == "pair_tiles" and shape == "64 copy":
-            copy = {"copy_ms": times[0], "copy_library_ms": times[3]}  # a.clone() in its turns
-        if "copy" not in shape and (name not in best or times[0] < best[name][0][0]):
-            best[name] = (times, nbytes)  # the JSON line: each kernel's fastest tile shape
-    for module in ("exp_sym", "exp_pair_rect"):
-        proc = subprocess.run([sys.executable, "-m", f"strided_tpu_torch.benchmarks.{module}"],
-                              capture_output=True, text=True, timeout=300)
-        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
-        print(f"[11 probes] python -m strided_tpu_torch.benchmarks.{module}: exit {proc.returncode}, "
-              f"{len(rows)} variants, all ok {all(r['ok'] for r in rows)}")
-        if proc.returncode != 0 or not rows or not all(r["ok"] for r in rows):
-            raise RuntimeError(f"{module} on its own failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-
-    # the bound counts each input element read once and each output written
-    # once: sym_two_read's second read of A is not work the function needs
-    need = {"transpose_tiles": 2 * 4 * x.numel(), "sym_two_read": 2 * 4 * x.numel(),
-            "pair_tiles": 2 * 4 * x.numel(), "rect_pairs": best["rect_pairs"][1]}
-
-    def entry(name, source, replaces, **extra):
-        times = best[name][0]
-        return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{source}.cu",
-                "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-                "ms": times[0], "plain_ms": times[1], **bound(need[name]),
-                "library_ms": times[3] if len(times) > 3 else None, **extra}
-
-    return [entry("transpose_tiles", "exp_sym", "benchmarks/exp_sym.py:43"),
-            entry("sym_two_read", "exp_sym", "benchmarks/exp_sym.py:63"),
-            entry("pair_tiles", "exp_sym", "benchmarks/exp_sym.py:222", **copy),
-            entry("rect_pairs", "exp_pair_rect", "benchmarks/exp_pair_rect.py:110")]
-
-
-REVERSAL_SOURCES = {  # kernel: TPU Pallas call it replaces (first of its family)
-    "rev4_tiles": "benchmarks/exp_perm2.py:40",
-    "rev4_mma": "benchmarks/exp_perm2.py:112",
-    "rev4_async": "benchmarks/exp_perm4.py:153",
-}
 
 
 def _reversal_kernel(name: str) -> str:
@@ -1732,41 +1255,52 @@ def _reversal_kernel(name: str) -> str:
     return "rev4_async" if name.startswith("dma4d") else "rev4_tiles"
 
 
-def reduce_perm_phase(dev, card):
+def reduce_perm_phase(dev) -> None:
     """Phase 12: the streaming-reduction probe (P3) and the rank-4 reversal
-    probes (P4-P6) with their four kernels. Returns the kernels' entries
-    for the JSON line."""
-    import subprocess
-    import sys
-
+    probes (P4-P6) with their four kernels (see the module docstring)."""
     from strided_tpu_torch.benchmarks import exp_perm2, exp_perm4, exp_perm_probe
     from strided_tpu_torch.benchmarks import exp_reduce as ere, exp_sym as es, perm_kernels as pk
 
-    scripts = (ere, exp_perm2, exp_perm4, exp_perm_probe)
     for counts in (ere.LAUNCHES, pk.LAUNCHES):
         for k in counts:
             counts[k] = 0
     t2d_before = es.LAUNCHES["transpose_tiles"]
-    rcs = tuple(m.main([]) for m in scripts)  # one JSON line a variant
+    # every variant of the four scripts on the tensor their ``run`` draws
+    # (seed 0, their default size), held to its plain result as ``run`` holds
+    # it; exp_perm2's and exp_perm_probe's ``run`` both add the engine's
+    # reversal on the same tensor, checked once here
+    bad = []
+    a = torch.randn(8192, 8192, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    for name, (fn, want) in ere.variants().items():
+        got = fn(a)
+        if name.startswith("nocompute"):
+            ok = torch.equal(got, want(a))
+        else:
+            e_plain, e64, tol = ere.sum_error(got, a)
+            ok = e_plain <= tol and e64 <= tol
+        if not ok:
+            bad.append(f"exp_reduce.{name}")
+    del a, got
+    x = torch.randn((64,) * 4, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    for script in (exp_perm2, exp_perm4, exp_perm_probe):
+        for name, (fn, want) in script.variants().items():
+            if not torch.equal(fn(x, out=torch.full_like(x, float("nan"))), want(x)):
+                bad.append(f"{script.__name__.rsplit('.', 1)[1]}.{name}")
+    if not torch.equal(pk.engine_reversal(x)[0], pk.reversal_reference(x)):
+        bad.append("the engine's reversal")
     torch.cuda.synchronize()
     launches = {**ere.LAUNCHES, **pk.LAUNCHES}
     t2d = es.LAUNCHES["transpose_tiles"] - t2d_before
-    print(f"[12 reduce/perm] launches in the probes' run: {launches}, transpose_tiles (P5 t2d) "
-          f"{t2d} [{card}]")
-    if rcs != (0,) * len(scripts):
-        raise RuntimeError(f"a probe variant disagreed with its plain result (exit codes {rcs})")
+    print(f"[12 reduce/perm] every variant of exp_reduce, exp_perm2, exp_perm4 and "
+          f"exp_perm_probe equal to its plain result: {not bad}; launches {launches}, "
+          f"transpose_tiles (P5 t2d) {t2d}")
+    if bad:
+        raise RuntimeError(f"probe variants off their plain result: {bad}")
     for name, count in {**launches, "transpose_tiles": t2d}.items():
         if count < 1:
             raise RuntimeError(f"{name} was not launched by the probes")
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    err, best = {}, {}
-
-    def keep(name, e, times):
-        err[name] = max(err.get(name, 0.0), e)
-        if name not in best or times[0] < best[name][0]:
-            best[name] = times  # the JSON line: each kernel's fastest form
-
     # P3: every slab, summing (K3's tolerance, against plain and f64) and not
     a = torch.randn(8192, 8192, device=dev, generator=gen)
     for R, C in ere.SLABS:
@@ -1781,19 +1315,10 @@ def reduce_perm_phase(dev, card):
               f"(limit 0)")
         if e != 0.0:
             raise RuntimeError(f"stream_sum_slabs {R}x{C} nocompute is not a[0]")
-        times = _turns(lambda R=R, C=C: ere.stream_sum_slabs(a, R, C), lambda: a.sum(0), reps=50)
-        _report(12, f"stream_sum_slabs {R}x{C} 8192^2 f32", "GB/s", 4 * a.numel(), times, card)
-        nc = _turns(lambda R=R, C=C: ere.stream_sum_slabs(a, R, C, compute=False),
-                    lambda: a[0].clone(), reps=50)
-        _report(12, f"stream_sum_slabs {R}x{C} nocompute (plain: a[0].clone())", "GB/s",
-                4 * a.numel(), nc, card)
-        keep("stream_sum_slabs", e_plain, times)
-    lib_sum = _library("a.sum(0) 8192^2", lambda: a.sum(0))
     del a
 
     # P4-P6: every reversal variant of the three scripts, exact
     x = torch.randn(64, 64, 64, 64, device=dev, generator=gen)
-    nbytes = 2 * 4 * x.numel()
     for script in (exp_perm2, exp_perm4, exp_perm_probe):
         for name, (fn, plain) in script.variants().items():
             if name == "plain" or name.startswith("t2d"):
@@ -1806,38 +1331,6 @@ def reduce_perm_phase(dev, card):
             print(f"[12 reduce/perm] {what}: |kernel - plain| {e:.3e} (limit 0, into NaNs)")
             if e != 0.0:
                 raise RuntimeError(f"{what}: kernel off its plain version by {e:.3e}")
-            times = _turns(lambda fn=fn: fn(x), lambda plain=plain: plain(x), reps=20)
-            _report(12, f"{what} 64^4 f32", "GB/s", nbytes, times, card)
-            if not name.startswith(("nocompute", "mxu_default")):
-                keep(kernel, e, times)
-            else:
-                err[kernel] = max(err.get(kernel, 0.0), e)
-    lib_rev = _library("x.permute(3, 2, 1, 0).contiguous() 64^4",
-                       lambda: x.permute(3, 2, 1, 0).contiguous())
-
-    for script in scripts:
-        module = script.__name__
-        proc = subprocess.run([sys.executable, "-m", module], capture_output=True, text=True,
-                              timeout=300)
-        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
-        print(f"[12 reduce/perm] python -m {module}: exit {proc.returncode}, {len(rows)} variants, "
-              f"all ok {all(r['ok'] for r in rows)}")
-        if proc.returncode != 0 or not rows or not all(r["ok"] for r in rows):
-            raise RuntimeError(f"{module} on its own failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-
-    def entry(name, source, replaces, work, library):
-        return {"name": name, "route": "cuda", "source": f"strided_tpu_torch/csrc/{source}.cu",
-                "replaces": replaces, "launches": launches[name], "max_abs_err": err[name],
-                "ms": best[name][0], "plain_ms": best[name][1], **work, "library_ms": library}
-
-    # the identity product: 2 * 16 flops an element (one k-tile of 16) in
-    # each of three bf16 passes, on the tensor cores
-    mma_work = bound(nbytes, 3 * 2 * 16 * x.numel(), BF16_TENSOR_OPS_PER_S)
-    return [entry("stream_sum_slabs", "exp_reduce", "benchmarks/exp_reduce.py:49",
-                  bound(4 * 8192 * 8192 + 4 * 8192), lib_sum),
-            *(entry(k, "exp_perm", REVERSAL_SOURCES[k],
-                    mma_work if k == "rev4_mma" else bound(nbytes), lib_rev)
-              for k in ("rev4_tiles", "rev4_mma", "rev4_async"))]
 
 
 RICCATI_LIMIT = 1e-4  # max |dK|, f32 on the card against f64 on the CPU, N=50
@@ -1845,8 +1338,31 @@ ROLLOUT_LIMIT = 1e-4  # max |dx| over 100 steps of 0.01 s, 0.1 rad states
 ILQR_LIMIT = 1e-3  # max |du|, cartpole T=40, 15 iterations, inputs up to ~86
 
 
-def _profile_lines(rows, top: int = 6) -> list:
-    return [f"{ms:.4f} ms {n:.1f}x {name[:80]}" for ms, n, name in rows[:top]]
+def scenario_checks(mesh, dev) -> None:
+    """``benchmarks/scenario_mpc.run``'s checks without its timers, over the
+    ranks of ``mesh``: the chained step's first call equal to the eager
+    chain bit for bit (``bench.matches_eager``), then ``WARMUP + REPS``
+    chained steps captured and as many eagerly, the last state finite, and
+    the consensus control finite. Every rank must call it together."""
+    from strided_tpu_torch.bench import matches_eager
+    from strided_tpu_torch.benchmarks import scenario_mpc as sm
+    from strided_tpu_torch.capture import disable_capture
+    from strided_tpu_torch.parallel import scenario_consensus_control, sharded_mpc_step
+
+    model, ctrl = sm.controller(device=dev)
+    x = sm.states(16384, dev)
+    chain = sm.chained_step(sharded_mpc_step(ctrl, model, mesh, sm.DT), mesh)
+    matches_eager(lambda: chain(x))
+    state = x
+    for _ in range(sm.WARMUP + sm.REPS):
+        state = chain(state)
+    with disable_capture():
+        for _ in range(sm.WARMUP + sm.REPS):
+            state = chain(state)
+    u_cons, _ = scenario_consensus_control(ctrl, mesh)(x)
+    if not (torch.isfinite(state).all() and torch.isfinite(u_cons).all()):
+        raise RuntimeError("scenario_mpc: the chained steps or the consensus control are not "
+                           "finite")
 
 
 def slice_c_full(mesh, dev) -> dict:
@@ -1857,15 +1373,13 @@ def slice_c_full(mesh, dev) -> dict:
     K1's plain version (the ADMM loop) on the rank's rows, the consensus
     within 1e-5 of the oracle's mean. Over NCCL the step and the consensus
     are also called captured and held bit for bit against their eager calls
-    (``bench.matches_eager``), and timed captured beside eagerly, and
-    ``benchmarks/scenario_mpc.run``'s row is taken with a profile of the
-    chained step captured and eagerly; over gloo every call runs eagerly (a
+    (``bench.matches_eager``), and ``scenario_mpc``'s chained step is
+    checked (:func:`scenario_checks`); over gloo every call runs eagerly (a
     gloo group cannot be captured). Then ``sharded_batched_pair`` on ``(2
     ranks, 4096, 4096)`` (K2 once a matrix, equal to ``pair_reference`` bit
     for bit) and ``sharded_stream_sum`` on ``(ranks 8192, 8192)`` (K3 once a
     rank on a 2^26-element block, within 1e-6 rows max|a| of the f64 column
-    sum); with this rank's times. Every rank must call it together. Raises
-    on a failed check."""
+    sum). Every rank must call it together. Raises on a failed check."""
     import torch.distributed as tdist
 
     from strided_tpu_torch import bench, config
@@ -1874,9 +1388,8 @@ def slice_c_full(mesh, dev) -> dict:
     from strided_tpu_torch.core import kernels_special as ks
     from strided_tpu_torch.core import stream_reduce as sr
     from strided_tpu_torch.mpc import fused_admm as fa
-    from strided_tpu_torch.parallel import (axis_size, collective, gather,
-                                            scenario_consensus_control, shard,
-                                            sharded_batched_pair, sharded_mpc_step,
+    from strided_tpu_torch.parallel import (axis_size, gather, scenario_consensus_control,
+                                            shard, sharded_batched_pair, sharded_mpc_step,
                                             sharded_stream_sum)
 
     err = lambda a, b: (a.double() - b.double()).abs().max().item()  # noqa: E731
@@ -1896,8 +1409,8 @@ def slice_c_full(mesh, dev) -> dict:
         u_cons, _ = cons(x)
         out["k1_launches_consensus"] = fa.LAUNCHES
     if nccl:  # the captured calls, each held bit for bit against an eager one
-        (xn_c, u_c), out["step_first_ms"], _ = bench.matches_eager(lambda: step(x))
-        (uc_c, _), out["consensus_first_ms"], _ = bench.matches_eager(lambda: cons(x))
+        (xn_c, u_c), _, _ = bench.matches_eager(lambda: step(x))
+        (uc_c, _), _, _ = bench.matches_eager(lambda: cons(x))
         out["captured_equals_eager"] = (torch.equal(xn_c, xn) and torch.equal(u_c, u)
                                         and torch.equal(uc_c, u_cons))
     out["step_u_err"] = err(gather(u, mesh), u_all)
@@ -1914,25 +1427,7 @@ def slice_c_full(mesh, dev) -> dict:
             and out["consensus_err"] <= 1e-5 and out.get("captured_equals_eager", True)):
         raise RuntimeError(f"slice C at full size: a check failed: {out}")
     if nccl:
-        out["step_ms"] = bench.cuda_ms(lambda: step(x), reps=20, warmup=3)
-        out["consensus_ms"] = bench.cuda_ms(lambda: cons(x), reps=20, warmup=3)
-    with disable_capture():
-        out["step_eager_ms"] = bench.cuda_ms(lambda: step(x), reps=20, warmup=3)
-        out["consensus_eager_ms"] = bench.cuda_ms(lambda: cons(x), reps=20, warmup=3)
-    buf = torch.zeros(4, device=dev)  # the consensus's all_reduce alone, eagerly
-    out["all_reduce_ms"] = bench.cuda_ms(lambda: collective("all_reduce", buf, mesh),
-                                         reps=20, warmup=3)
-    if nccl:  # the benchmark's row on these ranks, and its chained step profiled
-        row = scenario_mpc.run(device=dev)
-        for k in ("latency_ms", "eager_latency_ms", "device_ms", "first_call_ms"):
-            out["scenario_" + k] = row[k]
-        chain = scenario_mpc.chained_step(step, mesh)
-        dev_ms, kernels, rows = bench.device_profile(lambda: chain(x), calls=5)
-        out.update(profile_ms=dev_ms, profile_kernels=kernels, profile=_profile_lines(rows))
-        with disable_capture():
-            dev_ms, kernels, rows = bench.device_profile(lambda: chain(x), calls=5)
-        out.update(profile_eager_ms=dev_ms, profile_eager_kernels=kernels,
-                   profile_eager=_profile_lines(rows))
+        scenario_checks(mesh, dev)
 
     gen = torch.Generator(device=dev).manual_seed(0)  # the same data on every rank
     xp = torch.randn((2 * n, 4096, 4096), generator=gen, device=dev)
@@ -1989,11 +1484,10 @@ def slice_c_rank(init_method, nproc, rank, backend, outdir) -> None:
              **res, **{"full_" + k: np.asarray(v) for k, v in full.items()})
 
 
-def slice_c_ranks(nproc: int, backend, card) -> None:
+def slice_c_ranks(nproc: int, backend) -> None:
     """Phase 14(b): ``nproc`` ranks of :func:`slice_c_rank` on the card
     (NCCL, one card a rank, unless ``backend="gloo"``); prints each rank's
-    numbers, and over NCCL each rank's ``scenario_mpc`` row and the profile
-    of its chained step. Raises when a rank fails."""
+    checks. Raises when a rank fails."""
     import os
     import tempfile
 
@@ -2007,18 +1501,13 @@ def slice_c_ranks(nproc: int, backend, card) -> None:
         ranks = [dict(np.load(f"{outdir}/rank{r}.npz")) for r in range(nproc)]
     for r, res in enumerate(ranks):  # every check already passed in the rank
         f = {k[len("full_"):]: v for k, v in res.items() if k.startswith("full_")}
-        captured = bool(f["captured"])
-        if captured:
+        if bool(f["captured"]):
             mode = (f"captured: step and consensus == eager bit for bit "
                     f"{bool(f['captured_equals_eager'])}, graphs in the dry run "
-                    f"{res['graph_captures']} captures / {res['graph_replays']} replays")
-            times = (f"step {f['step_ms']:.4f} ms captured, {f['step_eager_ms']:.4f} eager, "
-                     f"first call {f['step_first_ms']:.1f}; consensus {f['consensus_ms']:.4f} "
-                     f"captured, {f['consensus_eager_ms']:.4f} eager")
+                    f"{res['graph_captures']} captures / {res['graph_replays']} replays, "
+                    f"scenario_mpc's chained step == eager and finite")
         else:
             mode = f"eager (gloo): a captured call refused ({str(res['err_gloo_graph'])[:60]}...)"
-            times = (f"step {f['step_eager_ms']:.4f} ms eager, consensus "
-                     f"{f['consensus_eager_ms']:.4f} eager")
         print(f"[14 slice C] rank {r} of {nproc} ({res['backend']}, {res['device']}), {mode}; "
               f"dry run K1 {res['k1_step_f32']}+{res['k1_consensus_f32']}, K2 "
               f"{res['k2_launches']}, K3 {res['stream_launches']} launches; full size: u rows "
@@ -2027,34 +1516,16 @@ def slice_c_ranks(nproc: int, backend, card) -> None:
               f"{f['k1_launches_step']}+{f['k1_launches_consensus']} eagerly, K2 "
               f"{f['k2_launches']} (== plain: {f['k2_exact']}), K3 {f['k3_launches']} "
               f"{[str(r) for r in f['k3_routes']]} err {f['k3_err']:.3e} (tol {f['k3_tol']:.3e}); "
-              f"{times}, all_reduce of 4 floats {f['all_reduce_ms']:.4f} ms eager; u[0] "
-              f"{[round(float(v), 6) for v in f['u0']]} [{card}]")
-        if captured:
-            lat = float(f["scenario_latency_ms"])
-            print(f"[14 slice C] rank {r} of {nproc}: scenario_mpc chained step captured "
-                  f"{lat:.4f} ms, eager {float(f['scenario_eager_latency_ms']):.4f}, device "
-                  f"{float(f['scenario_device_ms']):.4f}, first call "
-                  f"{float(f['scenario_first_call_ms']):.1f}; profiled captured "
-                  f"{float(f['profile_kernels']):.0f} device ops, "
-                  f"{float(f['profile_ms']):.4f} device ms a step (busy share "
-                  f"{float(f['profile_ms']) / lat:.3f}); eagerly "
-                  f"{float(f['profile_eager_kernels']):.0f} ops, "
-                  f"{float(f['profile_eager_ms']):.4f} device ms (busy share "
-                  f"{float(f['profile_eager_ms']) / float(f['scenario_eager_latency_ms']):.3f}) "
-                  f"[{card}]")
-            for line in f["profile"]:
-                print(f"  rank {r} captured: {line}")
-            for line in f["profile_eager"][:3]:
-                print(f"  rank {r} eager: {line}")
+              f"u[0] {[round(float(v), 6) for v in f['u0']]}")
 
 
-def slice_c_phase(dev, card) -> None:
+def slice_c_phase(dev) -> None:
     """Phase 14: slice C, the multi-GPU layer, on one process (a 1-rank NCCL
     mesh: the step and the consensus counted eagerly, then captured and held
     bit for bit against eager, K1 in their profiled replays, the sharded
-    rollout replaying the captured ``rollout``, ``scenario_mpc``'s row) and
-    on two ranks (:func:`slice_c_ranks`). Raises on any failed check or
-    failing rank."""
+    rollout replaying the captured ``rollout``, ``scenario_mpc``'s chained
+    step) and on two ranks (:func:`slice_c_ranks`). Raises on any failed
+    check or failing rank."""
     import torch.distributed as tdist
 
     from strided_tpu_torch import bench
@@ -2063,10 +1534,9 @@ def slice_c_phase(dev, card) -> None:
     from strided_tpu_torch.models import double_pendulum
     from strided_tpu_torch.mpc import fused_admm as fa
     from strided_tpu_torch.mpc import rollout
-    from strided_tpu_torch.parallel import (make_mesh, scenario_consensus_control,
+    from strided_tpu_torch.parallel import (axis_size, make_mesh, scenario_consensus_control,
                                             sharded_mpc_step, sharded_rollout)
 
-    t0 = time.perf_counter()
     mesh = make_mesh(device="cuda")  # no process group yet: one NCCL rank
     try:
         backend = tdist.get_backend()
@@ -2088,24 +1558,23 @@ def slice_c_phase(dev, card) -> None:
         same_cons = torch.equal(u_cons, u_loc.mean(0))
         graphs = cap.CAPTURES
         fa.LAUNCHES = 0  # each first captured call: the warm-up's and the capture's; then eager
-        (xn_c, u_c), step_first, step_capture = bench.matches_eager(lambda: step(x))
+        (xn_c, u_c), _, _ = bench.matches_eager(lambda: step(x))
         step_recorded = fa.LAUNCHES
         fa.LAUNCHES = 0
-        (uc_c, _), cons_first, cons_capture = bench.matches_eager(lambda: cons(x))
+        (uc_c, _), _, _ = bench.matches_eager(lambda: cons(x))
         cons_recorded = fa.LAUNCHES
         captured = (torch.equal(xn_c, xn) and torch.equal(u_c, u)
                     and torch.equal(uc_c, u_cons))
         graphs = cap.CAPTURES - graphs
-        print(f"[14 slice C] one rank ({backend}), 16384 scenarios, N=50, ADMM-20: eager step "
+        print(f"[14 slice C] {axis_size(mesh)} rank ({backend}), 16384 scenarios, N=50, "
+              f"ADMM-20: eager step "
               f"== ctrl.control + model.step bit for bit: {same}; consensus == their mean: "
               f"{same_cons}; K1 launches eagerly: step {step_launches}, consensus "
               f"{cons_launches}; captured (one graph each, {graphs} captures) == eager bit for "
               f"bit: {captured}; K1 launches of the warm-up, the capture and the eager call: "
-              f"step {step_recorded}, consensus {cons_recorded}; first call step "
-              f"{step_first:.1f} ms (capture "
-              f"{step_capture:.1f}), consensus {cons_first:.1f} ms (capture {cons_capture:.1f}) "
-              f"[{card}]")
-        if (backend != "nccl" or not (same and same_cons and captured) or graphs != 2
+              f"step {step_recorded}, consensus {cons_recorded}")
+        if (backend != "nccl" or axis_size(mesh) != 1 or not (same and same_cons and captured)
+                or graphs != 2
                 or (step_launches, cons_launches) != (1, 1)
                 or (step_recorded, cons_recorded) != (3, 3)):
             raise RuntimeError("slice C, one rank: a check failed (see the line above)")
@@ -2117,8 +1586,8 @@ def slice_c_phase(dev, card) -> None:
             profiled = bench.device_profile(call, calls=5)  # 3 warm-up calls, 5 profiled
             k1 = sum(c for _ms, c, name in profiled[2] if "fused_admm_kernel" in name)
             print(f"[14 slice C] one rank: the captured {what} profiled over 5 replays: "
-                  f"fused_admm_kernel {k1:.1f} a call, {profiled[1]:.0f} device ops, "
-                  f"{profiled[0]:.4f} device ms a call; replays {cap.REPLAYS - replays} [{card}]")
+                  f"fused_admm_kernel {k1:.1f} a call, {profiled[1]:.0f} device ops a call; "
+                  f"replays {cap.REPLAYS - replays}")
             if not k1 > 0 or cap.REPLAYS - replays != 8:
                 raise RuntimeError(f"the captured {what}: K1 {k1} a replay, "
                                    f"{cap.REPLAYS - replays} replays for 8 calls")
@@ -2138,47 +1607,29 @@ def slice_c_phase(dev, card) -> None:
         if rolled != (1, 2) or not (torch.equal(xs1, xs_e) and torch.equal(xs2, xs_e)):
             raise RuntimeError("sharded_rollout did not replay the captured rollout")
 
-        fa.LAUNCHES = 0
-        row = scenario_mpc.run(device=dev)  # over the same 1-rank group
-        torch.cuda.synchronize()
-        print(f"[14 slice C] scenario_mpc {json.dumps(row)}")
-        print(f"[14 slice C] one rank: chained step captured {row['latency_ms']:.4f} ms against "
-              f"{row['device_ms']:.4f} device ({row['latency_ms'] / row['device_ms']:.3f}x), "
-              f"eager {row['eager_latency_ms']:.4f}, first call {row['first_call_ms']:.1f} ms "
-              f"[{card}]")
-        if not row["captured"] or row["ranks"] != 1 or row["backend"] != "nccl":
-            raise RuntimeError(f"scenario_mpc: not a captured 1-rank NCCL row: {row}")
-        chain = scenario_mpc.chained_step(step, mesh)
-        bench.print_profile("scenario chained step 16384 x N=50 x ADMM-20, one rank, captured",
-                            "step", row["latency_ms"], bench.device_profile(lambda: chain(x),
-                                                                            calls=5))
-        with cap.disable_capture():
-            bench.print_profile("scenario chained step, one rank, eager", "step",
-                                row["eager_latency_ms"],
-                                bench.device_profile(lambda: chain(x), calls=5))
+        scenario_checks(mesh, dev)  # over the same 1-rank group
+        print("[14 slice C] one rank: scenario_mpc's chained step == eager bit for bit, its "
+              "chained steps and consensus control finite")
     finally:
         tdist.destroy_process_group()
-    del x, xn, u, u_loc, step, cons, ctrl, chain, xn_c, u_c, uc_c
+    del x, xn, u, u_loc, step, cons, ctrl, xn_c, u_c, uc_c
     torch.cuda.empty_cache()  # leave the card to the ranks
 
-    slice_c_ranks(2, None if torch.cuda.device_count() >= 2 else "gloo", card)
-    print(f"[14 slice C] {time.perf_counter() - t0:.1f} s")
+    slice_c_ranks(2, None if torch.cuda.device_count() >= 2 else "gloo")
 
 
-def mpc_stack_phase(dev, card) -> None:
+def mpc_stack_phase(dev) -> None:
     """Phase 13: Riccati, rollouts and iLQR (slice B, plain PyTorch, no
     kernel of its own) on the card at the reference's sizes, each held to
-    the port's own f64 run on the CPU. Raises on any failed check."""
+    the port's own f64 run on the CPU, and their captured entry points to
+    their eager calls. Raises on any failed check."""
     from strided_tpu_torch import bench
     from strided_tpu_torch.benchmarks import ilqr_bench
-    from strided_tpu_torch.capture import disable_capture
     from strided_tpu_torch.mpc import ilqr, rollout, rollout_final
-
-    t0 = time.perf_counter()
 
     dK, k_scale = bench.riccati_accuracy(dev)
     print(f"[13 mpc stack] Riccati N=50: max |dK| f32 card vs f64 CPU {dK:.3e} "
-          f"(limit {RICCATI_LIMIT}), max |K| {k_scale:.4f} [{card}]")
+          f"(limit {RICCATI_LIMIT}), max |K| {k_scale:.4f}")
     if not dK <= RICCATI_LIMIT:
         raise RuntimeError(f"Riccati gain off the f64 gain by {dK:.3e}")
 
@@ -2192,48 +1643,34 @@ def mpc_stack_phase(dev, card) -> None:
     cpu = lambda t: t[:64].double().cpu()
     e = (cpu(xs) - rollout(model, cpu(x0), cpu(us), bench.ROLLOUT_DT)).abs().max().item()
     print(f"[13 mpc stack] rollouts 4096 x 100: rollout_final == rollout[..., -1, :] bit for "
-          f"bit; first 64 vs f64 CPU max |dx| {e:.3e} (limit {ROLLOUT_LIMIT}) [{card}]")
+          f"bit; first 64 vs f64 CPU max |dx| {e:.3e} (limit {ROLLOUT_LIMIT})")
     if not e <= ROLLOUT_LIMIT:
         raise RuntimeError(f"rollouts off the f64 run by {e:.3e}")
-    row = bench.rollout_times(dev)  # captured == eager, or it raises; prints its times
-    call = lambda: rollout_final(model, x0, us, bench.ROLLOUT_DT)  # noqa: E731
-    with disable_capture():
-        bench.print_profile("rollouts 4096 x 100, eager", "call", row["eager_ms"],
-                            bench.device_profile(call, warmup=0))
-    bench.print_profile("rollouts 4096 x 100, captured", "call", row["captured_ms"],
-                        bench.device_profile(call, warmup=1))
+    # BASELINE config 2's rollouts (``bench.rollout_times``' problem): the
+    # captured call equal to the eager one, or this raises
+    bench.matches_eager(lambda: rollout_final(model, x0, us, bench.ROLLOUT_DT))
+    print("[13 mpc stack] rollout_final 4096 x 100 captured == eager bit for bit")
 
     du, u_scale, c32, c64 = bench.ilqr_accuracy(dev)
     print(f"[13 mpc stack] iLQR cartpole T=40 x 15: max |du| f32 card vs f64 CPU {du:.3e} "
-          f"(limit {ILQR_LIMIT}), input scale {u_scale:.4f}, cost {c32:.6f} vs {c64:.6f} "
-          f"[{card}]")
+          f"(limit {ILQR_LIMIT}), input scale {u_scale:.4f}, cost {c32:.6f} vs {c64:.6f}")
     if not du <= ILQR_LIMIT:
         raise RuntimeError(f"iLQR inputs off the f64 run by {du:.3e}")
 
-    row = ilqr_bench.run(device=dev)  # captured == eager, costs finite, or it raises
-    print(f"[13 mpc stack] iLQR batch 256 x T=50 x 10: captured == eager bit for bit, costs "
-          f"finite; captured {row['captured_latency_ms']:.4f} ms "
-          f"({row['captured_solves_per_s']:.6g} solves/s), eager {row['latency_ms']:.4f} ms "
-          f"({row['solves_per_s']:.6g} solves/s), device {row['device_latency_ms']:.4f} ms "
-          f"({row['device_solves_per_s']:.6g} solves/s); first call {row['first_call_ms']:.1f} "
-          f"ms, its capture and instantiation {row['capture_ms']:.1f} ms [{card}]")
-    print(f"[13 mpc stack] ilqr_bench {json.dumps(row)}")
-    # The solve profiled captured only: under the profiler the eager solve's
-    # 90k host launches were most of this phase's time.
+    # ``benchmarks/ilqr_bench.py``'s solve (batch 256, horizon 50, 10
+    # iterations): the first captured solve equal to the eager one (or this
+    # raises), every cost finite
     model, cost, x0s, us0 = ilqr_bench.problem(device=dev)
-    solve = lambda: ilqr(model, cost, x0s, us0, bench.CARTPOLE_DT, iters=10)  # noqa: E731
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved()
-    profiled = bench.device_profile(solve, warmup=1)  # the warm-up call captures
-    print(f"[13 mpc stack] iLQR's graph: the card's reserved memory grew by "
-          f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB at its capture [{card}]")
-    bench.print_profile("iLQR batch 256 x T=50 x 10, captured", "solve",
-                        row["captured_latency_ms"], profiled)
-    print(f"[13 mpc stack] {time.perf_counter() - t0:.1f} s")
+    res, _, _ = bench.matches_eager(
+        lambda: ilqr(model, cost, x0s, us0, bench.CARTPOLE_DT, iters=10))
+    finite = bool(torch.isfinite(res.cost).all())
+    print(f"[13 mpc stack] iLQR batch 256 x T=50 x 10: captured == eager bit for bit, costs "
+          f"finite: {finite}")
+    if not finite:
+        raise RuntimeError("ilqr_bench's solve ended with a non-finite cost")
 
 
-def gates_phase(dev, card) -> None:
+def gates_phase(dev) -> None:
     """Phase 15: the engine's four size gates, as set from the card's
     crossovers (``config.py``; ``benchmarks/exp_crossover.py``,
     ``exp_mapgate.py``). At each gate, one size at it and one just below,
@@ -2244,7 +1681,8 @@ def gates_phase(dev, card) -> None:
     no launch and the plain path; both equal to the plain version bit for
     bit (the sums within 1e-6 * rows * max|a|). Then ``sweeps --quick``
     (every record with both arms' eager and device times, no rate above the
-    card's peak, the litmus) and ``exp_contract`` in a process of its own
+    card's peak, the rotation litmus: the script's own checks of its
+    measurement) and ``exp_contract`` in a process of its own
     (``contract`` and ``mul`` on ``transpose(v)``: no kernel before the
     product, the allocator's peak one result more). The full ladders run
     standalone (``python -m strided_tpu_torch.benchmarks.exp_crossover``,
@@ -2257,7 +1695,6 @@ def gates_phase(dev, card) -> None:
     from strided_tpu_torch.benchmarks import sweeps
     from strided_tpu_torch.core import kernels_special as ks
 
-    t0 = time.perf_counter()
     cfg = st.get_config()
     gen = torch.Generator(device=dev).manual_seed(15)
     randn = lambda *shape: torch.randn(*shape, device=dev, generator=gen)  # noqa: E731
@@ -2307,7 +1744,7 @@ def gates_phase(dev, card) -> None:
             st.set_config(map_min_elements=cfg.map_min_elements)
     print(f"[15 gates] chosen: min_kernel_elements {cfg.min_kernel_elements}, map_min_elements "
           f"{cfg.map_min_elements}, pair_kernel_min_elements {cfg.pair_kernel_min_elements}, "
-          f"min_stream_reduce_elements {cfg.min_stream_reduce_elements} [{card}]")
+          f"min_stream_reduce_elements {cfg.min_stream_reduce_elements}")
 
     rows = sweeps.run(quick=True)
     litmus, records = rows[0], rows[1:]
@@ -2319,16 +1756,15 @@ def gates_phase(dev, card) -> None:
             raise RuntimeError(f"sweeps {r['family']} {r['size']}: an arm is missing or no "
                                f"measurement: {r}")
     print(f"[15 gates] sweeps --quick: {len(records)} records, both arms eager and device, "
-          f"litmus x + 1.0 {litmus['add1_device_gbs']:.0f} GB/s against x.clone() "
-          f"{litmus['clone_device_gbs']:.0f} ({litmus['copies']} copies)")
-    # a process of its own: after the profiles of phases 5-14 this process's
-    # profiler has been seen to record no kernel at all
+          f"the litmus passed")
+    # a process of its own: after the profiles of the earlier phases this
+    # process's profiler has been seen to record no kernel at all
     proc = subprocess.run([sys.executable, "-m", "strided_tpu_torch.benchmarks.exp_contract"],
                           capture_output=True, text=True, timeout=300)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
     if len(lines) != 2:
         raise RuntimeError(f"exp_contract exited {proc.returncode}: {proc.stderr[-2000:]}")
-    check, timing = map(json.loads, lines)
+    check, _timing = map(json.loads, lines)
     for name in ("contract", "mul"):
         c = check[name]
         print(f"[15 gates] {name} on transpose(v) 1024^2: kernels {len(c['kernels'])}, before "
@@ -2336,10 +1772,6 @@ def gates_phase(dev, card) -> None:
               f"{c['limit']}), |result - f64| {c['max_abs_err_vs_f64']:.3e}")
     if not check["ok"] or proc.returncode != 0:
         raise RuntimeError(f"exp_contract: a copy before the product, or the peak grew: {check}")
-    print(f"[15 gates] contract on transpose(v) 2048^2 {timing['lazy_ms']:.4f} ms (device "
-          f"{timing['lazy_device_ms']:.4f}) against einsum on the dense transpose "
-          f"{timing['dense_ms']:.4f} ({timing['dense_device_ms']:.4f}) [{card}]")
-    print(f"[15 gates] {time.perf_counter() - t0:.1f} s")
 
 
 def _kernel_names(fn) -> list:
@@ -2353,21 +1785,6 @@ def _kernel_names(fn) -> list:
         torch.cuda.synchronize()
     return [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
             if e.device_type == DeviceType.CUDA]
-
-
-def _ns_per_span(annotate, n: int = 1_000_000) -> tuple:
-    """(ns one span costs, net of the loop; ns an iteration of the loop
-    that enters it; ns an iteration of the same loop without it)."""
-    t = time.perf_counter_ns()
-    for _ in range(n):
-        with annotate("capture.replay"):
-            pass
-    with_span = (time.perf_counter_ns() - t) / n
-    t = time.perf_counter_ns()
-    for _ in range(n):
-        pass
-    loop = (time.perf_counter_ns() - t) / n
-    return with_span - loop, with_span, loop
 
 
 def tracing_process() -> None:
@@ -2384,28 +1801,17 @@ def tracing_process() -> None:
         raise RuntimeError(f"phase 17 exited {proc.returncode}: {proc.stderr[-3000:]}")
 
 
-def tracing_phase(dev, card) -> None:
-    """Phase 17: the port's spans (``utils/profiling.py``). A span's host
-    cost with tracing off and on; the captured MPC step at batch 16384
-    with tracing off (no marker in a profiled replay), then on (a capture
-    of its own, ``qp.solve`` and ``model.step`` each between their two
-    markers once a replay, equal to the unmarked step bit for bit); the
-    markers' device time, both graphs in turns; a graph the caller
-    captures itself, with tracing on, holds no marker; the totals."""
+def tracing_phase(dev) -> None:
+    """Phase 17: the port's spans (``utils/profiling.py``). The captured MPC
+    step at batch 16384 with tracing off (no marker in a profiled replay),
+    then on (a capture of its own, ``qp.solve`` and ``model.step`` each
+    between their two markers once a replay, equal to the unmarked step bit
+    for bit); a graph the caller captures itself, with tracing on, holds no
+    marker; the spans' counts and parents."""
     from strided_tpu_torch import capture as cap
     from strided_tpu_torch.entry import make_controller, make_step
     from strided_tpu_torch.mpc.qp import qp_solve
     from strided_tpu_torch.utils import profiling
-
-    t0 = time.perf_counter()
-    off = _ns_per_span(profiling.annotate)
-    profiling.enable()
-    on = _ns_per_span(profiling.annotate)
-    profiling.disable()
-    profiling.reset()
-    print(f"[17 tracing] a span, host ns net of the loop (the loop with it, without it): off "
-          f"{off[0]:.1f} ({off[1]:.1f}, {off[2]:.1f}), on {on[0]:.1f} ({on[1]:.1f}, "
-          f"{on[2]:.1f}); torch {torch.__version__} [{card}]")
 
     model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
     step = make_step(model, ctrl, 0.02)
@@ -2451,54 +1857,27 @@ def tracing_phase(dev, card) -> None:
     for name in ("capture.replay", "capture.miss", "capture.signature", "capture.launch",
                  "capture.record", "qp.solve", "model.step"):
         t = totals.get(name)
-        said = "none" if t is None else (
-            f"{t['count']} calls, {t['total_ns'] / t['count'] / 1e3:.2f} us a call, self "
-            f"{t['self_ns'] / t['count'] / 1e3:.2f}, parents {t['parents']}")
+        said = "none" if t is None else f"{t['count']} calls, parents {t['parents']}"
         print(f"[17 tracing] {name}: {said}")
     if totals["capture.replay"]["count"] < 20 or "capture.replay" not in \
             totals["capture.launch"]["parents"]:
         raise RuntimeError(f"the replay spans are not as documented: {totals}")
-
-    graphs = {}
-    for traced in (False, True):
-        if traced:
-            profiling.enable()
-        key, _ = cap.signature((x,), {})
-        graphs[traced] = step.cache.get(key)[0]
-        profiling.disable()
-    ms = {False: [], True: []}
-    for traced in (False, True, True, False):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        graphs[traced].replay()
-        start.record()
-        for _ in range(200):
-            graphs[traced].replay()
-        end.record()
-        torch.cuda.synchronize()
-        ms[traced].append(start.elapsed_time(end) / 200)
-    print(f"[17 tracing] step device ms a replay, in turns: unmarked {ms[False]}, marked "
-          f"{ms[True]} [{card}]")
     profiling.reset()
-    print(f"[17 tracing] {time.perf_counter() - t0:.1f} s")
 
 
-def plant_process() -> dict:
+def plant_process() -> None:
     """Phase 18 in a process of its own (``python3 chip_smoke.py
     --plant-phase``; its profiles need a profiler that still records
-    kernels), its output printed here; returns the kernel's row of the JSON
-    line; raises when it fails."""
+    kernels), its output printed here; raises when it fails."""
     import os
     import subprocess
     import sys
 
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--plant-phase"],
                           capture_output=True, text=True, timeout=600)
-    lines = proc.stdout.splitlines()
-    print("\n".join(ln for ln in lines if not ln.startswith("{")))
-    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
-    if proc.returncode != 0 or len(rows) != 1:
+    print(proc.stdout, end="")
+    if proc.returncode != 0:
         raise RuntimeError(f"phase 18 exited {proc.returncode}: {proc.stderr[-3000:]}")
-    return rows[0]
 
 
 def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -2515,18 +1894,16 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ordered(a) - ordered(b)).abs()
 
 
-def plant_phase(dev, card) -> None:
-    """Phase 18 (the module docstring): prints its checks and times, and
-    the kernel's row of the JSON line last, as a JSON object of its own."""
+def plant_phase(dev) -> None:
+    """Phase 18 (the module docstring): prints its checks; raises on a
+    failed one."""
     import dataclasses
 
     from strided_tpu_torch import capture as cap
-    from strided_tpu_torch.bench import graph_ms
     from strided_tpu_torch.entry import make_controller, make_step
     from strided_tpu_torch.models import hover_input, hover_state, quadrotor, rk4_step
     from strided_tpu_torch.models import quadrotor_rk4 as qr
 
-    t0 = time.perf_counter()
     dt = 0.02
     declines, launches = qr.DECLINES["autodiff"], qr.LAUNCHES
     model, ctrl = make_controller(horizon=50, dt=dt, device=dev)
@@ -2543,7 +1920,6 @@ def plant_phase(dev, card) -> None:
     if not same:
         raise RuntimeError("the linearisation changed with the fused step")
 
-    worst = 0.0
     other = quadrotor(m=1.7, g=9.7, Jx=0.013, Jy=0.011, Jz=0.023)
     f32, f64 = torch.float32, torch.float64
     for batch, body, h, dtype, how in (
@@ -2568,8 +1944,6 @@ def plant_phase(dev, card) -> None:
         ulps = _ulps(got, want).masked_fill(~fin, 0)
         at_clamp = ulps.reshape(-1, 12)[near].max().item()
         widest = rel.masked_fill(~fin, 0).max().item()
-        if dtype == f32:
-            worst = max(worst, widest)
         what = (f"batch {batch} {str(dtype)[6:]}" + (f", m 1.7, dt {h}" if body is other else "")
                 + (", strided x and u" if how else ""))
         print(f"[18 plant] {what}: |kernel - eager| / (|eager| + 1) widest {widest:.3e} "
@@ -2577,19 +1951,10 @@ def plant_phase(dev, card) -> None:
               f"({at_clamp} on the "
               f"{near.numel()} rows at the clamp), bit for bit "
               f"{(got == want).double().mean().item():.6f} of the elements, non-finite "
-              f"{int((~torch.isfinite(got)).sum())} [{card}]")
+              f"{int((~torch.isfinite(got)).sum())}")
         if not bool(agree.all()):
             raise RuntimeError(f"{what}: {int((~agree).sum())} elements off the eager "
                                f"step by more than {qr.TOLERANCE[dtype]:.0e} (|eager| + 1)")
-
-    x, u, _ = qr.stress_inputs((16384,), dev, seed=1818)
-    fused = lambda: model.step(x, u, dt)  # noqa: E731
-    eager = lambda: rk4_step(model.dynamics, x, u, dt)  # noqa: E731
-    k1, p1, p2, k2 = (graph_ms(f) for f in (fused, eager, eager, fused))
-    plant_bound = bound(16384 * 28 * 4)
-    print(f"[18 plant] the plant alone at 16384, device time through CUDA graphs in turns: "
-          f"kernel {k1:.4f}/{k2:.4f} ms, eager {p1:.4f}/{p2:.4f} ms; bound "
-          f"{plant_bound['bound_ms']:.4f} ms ({plant_bound['bound_by']}) [{card}]")
 
     xs = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (16384, 12)),
                          dtype=torch.float32, device=dev)
@@ -2629,26 +1994,6 @@ def plant_phase(dev, card) -> None:
         raise RuntimeError(f"a replay of the captured step ran the plant kernel "
                            f"{plant_ops['kernel']} times with the kernel plant and "
                            f"{plant_ops['eager']} with the eager plant, not 1 and 0")
-    ms = {"kernel": [], "eager": []}
-    for name in ("kernel", "eager", "eager", "kernel"):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        graphs[name].replay()
-        start.record()
-        for _ in range(200):
-            graphs[name].replay()
-        end.record()
-        torch.cuda.synchronize()
-        ms[name].append(start.elapsed_time(end) / 200)
-    print(f"[18 plant] captured step, ms a replay back to back, in turns: kernel plant "
-          f"{ms['kernel']}, eager plant {ms['eager']} [{card}]")
-    print(f"[18 plant] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({
-        "name": "quadrotor_rk4", "route": "cuda",
-        "source": "strided_tpu_torch/csrc/quadrotor_rk4.cu",
-        "replaces": None,  # no TPU kernel: XLA fuses the reference's plant
-        "launches": None,  # a step's count, from phase 5's profiled replay (main)
-        "max_rel_err": worst, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-        **plant_bound, "library_ms": None}))
 
 
 if __name__ == "__main__":
@@ -2657,12 +2002,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--slice-c-rank"]:
         slice_c_rank(*sys.argv[2:])
     elif sys.argv[1:2] == ["--tracing-phase"]:
-        from strided_tpu_torch.bench import card_label
-
-        tracing_phase("cuda", card_label())
+        tracing_phase("cuda")
     elif sys.argv[1:2] == ["--plant-phase"]:
-        from strided_tpu_torch.bench import card_label
-
-        plant_phase("cuda", card_label())
+        plant_phase("cuda")
     else:
         main()
