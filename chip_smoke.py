@@ -11,7 +11,8 @@ Phases (numbers are cited by the tests, README, PERF.md and ROADMAP.md):
 
 1. device: a CUDA device is required; prints its name and power limit.
 2. build: nvcc for sm_90a; from ptxas's report, K1's main-path instance,
-   the 14 K3 program kernels, K4's two ``tile_box_v``, every ``rev4_tiles``
+   the 14 K3 program kernels, K4's two ``tile_box_v`` and six
+   ``tile_stream_v`` (registers 2-4, with and without exp and sin), every ``rev4_tiles``
    and ``pair_tiles`` instance and the plant kernel's f32 and f64 instances
    built without spills; every ``rev4_mma`` instance built.
 3. K1 against its plain version, within 2e-4 and no further from the f64
@@ -33,8 +34,9 @@ Phases (numbers are cited by the tests, README, PERF.md and ROADMAP.md):
    equal to it, finite.
 8. the engine's main path at full size through its entry points: K2 on the
    flagship family (4000^2-8192^2, bf16, ragged), K3 on sums, max and
-   ``smean`` at 8192^2, K4 on ``permutedims_into``, ``smap`` and an int32
-   initop reduction; dispatch records, K3 paths and launches; then every
+   ``smean`` at 8192^2, K4 on ``permutedims_into``, ``smap``, the README
+   broadcast (f32 and bf16, streamed, bit for bit eager PyTorch) and an int32
+   initop reduction; dispatch records, K3 and K4 paths and launches; then every
    program op, per-element maps and reductions through K4, every fold and
    program kernel of K3 on aligned, ragged and unaligned rows, and K4's
    multi-axis map (``multi_axis_checks``), each against its plain version
@@ -390,18 +392,21 @@ def pair_instances(report) -> None:
 
 
 def box_instances(report) -> None:
-    """Phase 2's check of K4's multi-axis map (``tile_box_v``): its two
-    instances (three staging dims, and two) are built and neither spills;
-    their registers and stack are in ptxas's lines."""
+    """Phase 2's check of K4's multi-axis map (``tile_box_v``) and streaming
+    map (``tile_stream_v``): the box's two instances (three staging dims,
+    and two) and the stream's six (register files of 2, 3 and 4, with and
+    without exp and sin) are built and none spills; their registers and
+    stack are in ptxas's lines."""
     built = {name: (regs, spill) for src, name, regs, spill in report
-             if src == "tile_executor" and "tile_box_v" in name}
+             if src == "tile_executor" and ("tile_box_v" in name or "tile_stream_v" in name)}
     want = [f"tile_box_vILi{nu}ELi{lx}EE" for nu, lx in ((3, 3), (2, 6))]
+    want += [f"tile_stream_vILi{r}ELb{tr}EE" for r in (2, 3, 4) for tr in (0, 1)]
     for key in want:
         found = [v for name, v in built.items() if key in name]
         if len(found) != 1 or found[0][1]:
             raise RuntimeError(f"ptxas: {key} is missing or spills ({found})")
-    print(f"[2 build] tile_executor: {len(want)} tile_box_v instances built, no spill "
-          f"(registers {sorted(v[0] for name, v in built.items() if any(k in name for k in want))})")
+    print(f"[2 build] tile_executor: {len(want)} tile_box_v and tile_stream_v instances built, "
+          f"no spill (registers {sorted(v[0] for name, v in built.items())})")
 
 
 P2, P3, P4 = (1, 2, 3, 0), (2, 3, 0, 1), (3, 0, 1, 2)  # the README's four-permute sum
@@ -921,6 +926,15 @@ def engine_phases(dev) -> None:
     got = st.materialize(st.smap(lambda p, q: p * 3 + q, st.transpose(v), st.strided(w)))
     expect("smap(x*3 + y, v.T, w)", bool(ec.LAST_PLAN), True)
     check("smap(x*3 + y, v.T, w) 8192^2", got, a.T * 3 + w)
+    readme = lambda t: t * torch.exp(-2 * t) + torch.sin(t * t)  # noqa: E731
+    for dt in (torch.float32, torch.bfloat16):
+        x = a.to(dt)
+        before = dict(ec.MAP_PATHS)
+        got = st.to_array(st.sbroadcast(readme, st.strided(x)))
+        torch.cuda.synchronize()
+        expect(f"the README broadcast 8192^2 {dt}: K4's path",
+               [q for q in ec.MAP_PATHS if ec.MAP_PATHS[q] != before[q]], ["stream"])
+        check(f"A.*exp.(-2A) .+ sin.(A.*A) 8192^2 {dt}, against eager", got, readme(x))
     old_cfg = st.get_config()
     st.set_config(kernel_reductions=True)
     try:
@@ -938,9 +952,9 @@ def engine_phases(dev) -> None:
     print(f"[8 engine] launches on the main path: {launches}; K3 by path {sr.PATHS}, "
           f"K4 maps by interpreter {ec.MAP_PATHS}")
     if (sr.PATHS["identity/vector"] < 1 or sr.PATHS["amortized/vector"] < 1
-            or ec.MAP_PATHS["amortized"] < 1):
+            or ec.MAP_PATHS["amortized"] < 1 or ec.MAP_PATHS["stream"] < 1):
         raise RuntimeError("the main path did not run K3's identity and vector program kernels "
-                           "or K4's amortized map")
+                           "or K4's amortized and streaming maps")
     for name, count in launches.items():
         if count < 1:
             raise RuntimeError(f"{name} was not launched on the engine's main path")

@@ -64,8 +64,10 @@ class Config:
     # Reductions (op given, reduced dims present) through K4; off by
     # default, as ``pallas_reductions`` is in the reference.
     kernel_reductions: bool = False
-    # Maps whose operands need no transposed read through K4 (off: the
-    # reference keeps them on its plain path).
+    # Aligned maps (no transposed read) whose body eager PyTorch runs as one
+    # kernel, through K4 (off: they stay on the plain path, as the reference
+    # keeps them). An aligned body of two or more eager kernels takes K4
+    # whatever this says (core/executor_cuda.py).
     aligned_maps: bool = False
     # Size gates, in elements: each the smallest size from which the
     # kernel is no slower than the plain path in eager and device time at

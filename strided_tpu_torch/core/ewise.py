@@ -7,10 +7,13 @@ operators and ``__torch_function__``) and records a small flat **program**:
 one instruction per operation, with an op code, a compute type, operand
 registers and scalar constants. The kernels K3 and K4 interpret the program
 per element in registers (``csrc/ewise.cuh``); :func:`evaluate` is its plain
-PyTorch version.
+PyTorch version. ``exp`` and ``sin`` (:data:`TRANSCENDENTAL`) run on K4's
+streaming map alone; every other kernel declines a program that holds one
+(:func:`transcendental`).
 
 Types follow torch's own promotion, computed by running each operation on
-one-element tensors; the program keeps f32, bf16, int32 and bool values. bf16
+one-element tensors once per operation and operand dtypes and scalars
+(:func:`_dtype_of`); the program keeps f32, bf16, int32 and bool values. bf16
 arithmetic is done in f32 and rounded after every operation, as eager
 PyTorch does. A closure that captures a tensor, calls an operation outside
 the table, or needs another dtype raises :class:`Ineligible`; the engine
@@ -22,7 +25,9 @@ with the plain path there bit for bit: a division by a Python scalar is a
 multiplication by its f32 reciprocal (torch's CUDA ``div_true`` does this;
 on the CPU torch divides), and a power with a scalar exponent of 2, 3,
 0.5, -0.5, -1 or -2 takes torch's special forms. ``mod`` is floor-mod, as
-``torch.remainder`` is.
+``torch.remainder`` is. ``exp`` and ``sin`` promote an int32 operand to f32
+first, as torch does, and are the accurate ``expf`` and ``sinf`` on the card,
+the functions torch's own kernels call.
 """
 
 from __future__ import annotations
@@ -38,8 +43,8 @@ import numpy as np
 import torch
 
 __all__ = ["Ineligible", "Instr", "Program", "trace", "evaluate", "result_dtype",
-           "CProgram", "to_c", "compact", "operand_slots", "MAX_IN", "MAX_INSTR", "CREG",
-           "IMM"]
+           "CProgram", "to_c", "compact", "operand_slots", "transcendental", "TRANSCENDENTAL",
+           "MAX_IN", "MAX_INSTR", "CREG", "IMM"]
 
 MAX_IN = 8  # leaves (csrc/ewise.cuh: EW_MAX_IN)
 MAX_INSTR = 32  # instructions (EW_MAX_INSTR)
@@ -53,8 +58,9 @@ CODE_TYPE = {v: k for k, v in TYPE_CODE.items()}
 
 # op codes (EW_CONST ...)
 (CONST, CAST, ADD, SUB, MUL, DIV, DIVC, POW, POWC, MOD, MIN, MAX,
- LT, LE, GT, GE, EQ, NE, NEG, ABS, WHERE) = range(21)
+ LT, LE, GT, GE, EQ, NE, NEG, ABS, WHERE, EXP, SIN) = range(23)
 _CMP = (LT, LE, GT, GE, EQ, NE)
+TRANSCENDENTAL = (EXP, SIN)  # the ops only K4's streaming map runs
 
 
 class Ineligible(Exception):
@@ -94,13 +100,14 @@ _BINARY = {
     torch.gt: GT, torch.greater: GT, torch.ge: GE, torch.greater_equal: GE,
     torch.eq: EQ, torch.ne: NE, torch.not_equal: NE,
 }
-_UNARY = {torch.neg: NEG, torch.negative: NEG, torch.abs: ABS, torch.absolute: ABS}
+_UNARY = {torch.neg: NEG, torch.negative: NEG, torch.abs: ABS, torch.absolute: ABS,
+          torch.exp: EXP, torch.Tensor.exp: EXP, torch.sin: SIN, torch.Tensor.sin: SIN}
 _FILLS = {torch.full_like: None, torch.zeros_like: 0, torch.ones_like: 1}
 _TORCH_OF = {ADD: torch.add, SUB: torch.sub, MUL: torch.mul, DIV: torch.true_divide,
              DIVC: torch.true_divide, POW: torch.pow, POWC: torch.pow,
              MOD: torch.remainder, MIN: torch.minimum, MAX: torch.maximum,
              LT: torch.lt, LE: torch.le, GT: torch.gt, GE: torch.ge, EQ: torch.eq,
-             NE: torch.ne, NEG: torch.neg, ABS: torch.abs}
+             NE: torch.ne, NEG: torch.neg, ABS: torch.abs, EXP: torch.exp, SIN: torch.sin}
 
 
 def _is_scalar(x) -> bool:
@@ -113,6 +120,17 @@ def _probe(dtype):
     Eager CPU ops on one element cost microseconds; meta tensors go through
     Python reference implementations and cost a hundred times more."""
     return torch.ones(1, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=4096, typed=True)
+def _dtype_of(func, *operands):
+    """The dtype ``func`` gives on ``operands``: a dtype stands for a traced
+    value of it (a probe), anything else for itself (a Python scalar).
+    Cached, since the answer depends on these alone: a trace then runs no
+    torch operation for an (op, operands) it has met (typed, so ``1`` and
+    ``1.0`` are kept apart)."""
+    r = func(*[_probe(o) if isinstance(o, torch.dtype) else o for o in operands])
+    return r if isinstance(r, torch.dtype) else r.dtype
 
 
 def _f32(x) -> float:
@@ -200,6 +218,12 @@ class _Sym:
     def neg(self):
         return _unary(NEG, self)
 
+    def exp(self):
+        return _unary(EXP, self)
+
+    def sin(self):
+        return _unary(SIN, self)
+
     __hash__ = object.__hash__
     __neg__ = neg
     __abs__ = abs
@@ -242,8 +266,9 @@ def _check_operand(x):
         raise Ineligible(f"closure captures a {type(x).__name__}")
 
 
-def _meta_of(x):
-    return _probe(x.dtype) if isinstance(x, _Sym) else x
+def _kind(x):
+    """``x`` as :func:`_dtype_of` takes it: a traced value's dtype, or the scalar."""
+    return x.dtype if isinstance(x, _Sym) else x
 
 
 def _binary(func, x, y):
@@ -252,8 +277,8 @@ def _binary(func, x, y):
     op = _BINARY[func]
     b = x.b if isinstance(x, _Sym) else y.b
     try:
-        rd = func(_meta_of(x), _meta_of(y)).dtype
-        ct = torch.result_type(_meta_of(x), _meta_of(y)) if op in _CMP else rd
+        rd = _dtype_of(func, _kind(x), _kind(y))
+        ct = _dtype_of(torch.result_type, _kind(x), _kind(y)) if op in _CMP else rd
     except Exception as e:  # noqa: BLE001 - torch refuses the operands
         raise Ineligible(f"{func.__name__}: {e}") from e
     _code(rd)
@@ -279,6 +304,9 @@ def _unary(op, x):
         raise Ineligible("unary op on a constant")
     if _code(x.dtype) == BOOL:
         raise Ineligible("unary op on bool is not modelled")
+    if op in TRANSCENDENTAL:  # torch computes an int32 operand in f32
+        rd = _dtype_of(_TORCH_OF[op], x.dtype)
+        return x.b.emit(rd, op=op, type=_code(rd), a=x.b.cast(x, rd))
     return x.b.emit(x.dtype, op=op, type=_code(x.dtype), a=x.reg)
 
 
@@ -303,7 +331,7 @@ def _where(cond, x, y):
         raise Ineligible("where needs a traced bool condition")
     b = cond.b
     try:
-        rd = torch.where(_probe(torch.bool), _meta_of(x), _meta_of(y)).dtype
+        rd = _dtype_of(torch.where, torch.bool, _kind(x), _kind(y))
     except Exception as e:  # noqa: BLE001
         raise Ineligible(f"where: {e}") from e
     code = _code(rd)
@@ -354,7 +382,7 @@ def evaluate(prog: Program, leaves: Sequence[torch.Tensor], like=None) -> torch.
             v = regs[ins.a].to(CODE_TYPE[ins.type])
         elif ins.op in (DIVC, POWC):
             v = _TORCH_OF[ins.op](regs[ins.a], ins.cv)
-        elif ins.op in (NEG, ABS):
+        elif ins.op in (NEG, ABS, EXP, SIN):
             v = _TORCH_OF[ins.op](regs[ins.a])
         elif ins.op == WHERE:
             v = torch.where(regs[ins.a], regs[ins.b], regs[ins.c])
@@ -374,11 +402,16 @@ def operand_slots(ins: Instr) -> Tuple[str, ...]:
     """The fields of ``ins`` that name registers (or IMM)."""
     if ins.op == CONST:
         return ()
-    if ins.op in (CAST, DIVC, POWC, NEG, ABS):
+    if ins.op in (CAST, DIVC, POWC, NEG, ABS, EXP, SIN):
         return ("a",)
     if ins.op == WHERE:
         return ("a", "b", "c")
     return ("a", "b")
+
+
+def transcendental(prog: Program) -> bool:
+    """Whether ``prog`` holds an op of :data:`TRANSCENDENTAL`."""
+    return any(i.op in TRANSCENDENTAL for i in prog.instrs)
 
 
 def compact(prog: Program) -> Program:

@@ -14,10 +14,20 @@ parent (``_exact_nested``); f32/bf16/int32 (the reference also takes
 uint32, which PyTorch's kernels barely cover); a known reduction op; ``f``
 and ``initop`` traceable to elementwise programs (``ewise.py``); the size
 gates; at most 5 dims after fusion and 8 inputs; fewer than 2^31
-iteration elements. Maps whose operands all read in loop order stay on the
-plain path unless ``aligned_maps`` (the reference's policy). The TPU's
-lane/sublane tile alignment rules have no counterpart. A declined call
-leaves ``LAST_PLAN`` empty and logs why on ``strided_tpu_torch.dispatch``.
+iteration elements. The TPU's lane/sublane tile alignment rules have no
+counterpart. A declined call leaves ``LAST_PLAN`` empty and logs why on
+``strided_tpu_torch.dispatch``.
+
+Maps whose operands all read in loop order ("aligned") are where the
+reference's policy and the port's plain path part. The reference keeps them
+on its plain path, XLA, which fuses the map into one pass; the port's plain
+path is eager PyTorch, one kernel an operation. So an aligned map whose body
+eager PyTorch would run as two or more kernels (:func:`eager_passes`) takes
+K4; one of a single kernel stays plain unless ``aligned_maps``, as in the
+reference. A call whose output and inputs share one dense layout is planned
+as one dim of ``n`` elements without the planner (:func:`_dense`), and K4
+streams it (``tile_stream_v``). ``exp`` and ``sin`` run there only: a
+program holding one is declined on any other plan, and in a reduction.
 """
 
 from __future__ import annotations
@@ -46,9 +56,10 @@ _log = logging.getLogger("strided_tpu_torch.dispatch")
 LAUNCHES: int = 0
 # launches of a map by the kernel the launcher reports it ran: "amortized"
 # (the body fits ewise.CREG registers), "scalar" (a wider body), "copy" (a
-# transposed copy) or "multi_axis" (inputs staged along several dims)
-MAP_PATHS: dict = {"amortized": 0, "scalar": 0, "copy": 0, "multi_axis": 0}
-_MAP_PATH_NAMES = ("copy", "amortized", "scalar", "multi_axis")  # csrc/tile_executor.cu: *path
+# transposed copy), "multi_axis" (inputs staged along several dims) or
+# "stream" (one unit-stride dim, 16-byte accesses)
+MAP_PATHS: dict = {"amortized": 0, "scalar": 0, "copy": 0, "multi_axis": 0, "stream": 0}
+_MAP_PATH_NAMES = ("copy", "amortized", "scalar", "multi_axis", "stream")  # csrc/tile_executor.cu: *path
 MAX_DIM = 5  # csrc/tile_executor.cu: TE_MAX_DIM
 MAX_STAGING_DIMS = 3  # csrc/tile_executor.cu: launch_multi_axis
 MAX_IN = ewise.MAX_IN
@@ -113,6 +124,16 @@ class Plan:
     # each input's staging dim (-1: read directly) where the inputs stage
     # along two or more dims, else (): the multi-axis kernel's plan
     stage: Tuple[int, ...] = ()
+
+    @property
+    def streams(self) -> bool:
+        """The launcher streams the plan (csrc/tile_executor.cu: ``streams``):
+        a map over one dim that every operand reads with stride 1, a body and
+        inputs that fit ewise.CREG registers."""
+        return (self.red is None and len(self.dims) == 1 and self.out_strides == (1,)
+                and all(s == (1,) for s in self.in_strides)
+                and len(self.in_strides) <= ewise.CREG
+                and ewise.to_c(self.body).n_reg <= ewise.CREG)
 
 
 def try_fused_mapreduce(
@@ -187,6 +208,26 @@ def _plan(f, op, initop, dims, out, ins, cfg) -> Plan:
     except ewise.Ineligible as e:
         _demote(str(e))
 
+    if red is None and _dense(dims, operands):
+        if eager_passes(body) < 2 and not cfg.aligned_maps:
+            _demote("aligned map of one eager pass (aligned_maps off)")
+        plan = Plan((n,), 1, (1,), ((1,),) * len(ins), body, None, None, out.dtype)
+        real_axes = [(0,)] * len(operands)
+    else:
+        plan, real_axes = _planned(dims, operands, body, init, red, part_dtype, cfg)
+    stream = plan.streams
+    if not stream and any(ewise.transcendental(p) for p in (body, init) if p):
+        _demote("exp or sin off the streaming map (a reduction, an operand read transposed, "
+                "broadcast or with gaps, or a body wider than ewise.CREG registers)")
+    LAST_PLAN.update(dims=plan.dims, n_par=plan.n_par, real_axes=real_axes, reduction=red,
+                     body_ops=len(body.instrs), tiled_dim=plan.tdim, staging=plan.stage,
+                     stream=stream)
+    return plan
+
+
+def _planned(dims, operands, body, init, red, part_dtype, cfg):
+    """The planner's plan of a call whose operands do not share one dense
+    layout, and each operand's physical axes."""
     # fuse -> drop size-1 -> order, reduction dims innermost
     all_strides = tuple(tuple(v.strides) for v in operands)
     dims_f, strides_f = planner.fuse_dims(tuple(dims), all_strides)
@@ -214,17 +255,38 @@ def _plan(f, op, initop, dims, out, ins, cfg) -> Plan:
         if not _exact_nested(dec, v.parent.numel()):
             _demote("an operand is not a pure reshape of its parent")
         decs.append(dec)
-    if (op is None and not cfg.aligned_maps
+    if (red is None and eager_passes(body) < 2 and not cfg.aligned_maps
             and all(list(d.real_axes) == sorted(d.real_axes) for d in decs)):
-        _demote("aligned map (aligned_maps off)")
+        _demote("aligned map of one eager pass (aligned_maps off)")
     if set(decs[0].real_axes) != {i for i in range(n_par) if dims_o[i] > 1}:
         _demote("the output does not own exactly the parallel dims")
 
     tdim, tmask, stage = _staging(red, dims_o, strides_o)
-    LAST_PLAN.update(dims=dims_o, n_par=n_par, real_axes=[d.real_axes for d in decs],
-                     reduction=red, body_ops=len(body.instrs), tiled_dim=tdim, staging=stage)
-    return Plan(dims_o, n_par, strides_o[0], strides_o[1:], body, init, red, part_dtype,
-                tdim, tmask, stage)
+    return (Plan(dims_o, n_par, strides_o[0], strides_o[1:], body, init, red, part_dtype,
+                 tdim, tmask, stage), [d.real_axes for d in decs])
+
+
+def eager_passes(body: ewise.Program) -> int:
+    """The kernels eager PyTorch launches for ``body``: one an instruction,
+    but a Python scalar, which torch passes to the op that reads it."""
+    return sum(1 for i in body.instrs if not (i.op == ewise.CONST and i.scalar))
+
+
+def _dense(dims, operands) -> bool:
+    """The output and every input cover their whole parents from offset 0
+    with the same strides, and those strides are a dense layout of
+    ``dims``: flat index i of every parent is the same logical element."""
+    v0 = operands[0]
+    n = math.prod(dims)
+    for v in operands:
+        if v.strides != v0.strides or v.offset != 0 or v.parent.numel() != n:
+            return False
+    step = 1
+    for s, d in sorted((s, d) for s, d in zip(v0.strides, dims) if d > 1):
+        if s != step:
+            return False
+        step *= d
+    return True
 
 
 def _staging(red, dims, strides):

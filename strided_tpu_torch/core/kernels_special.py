@@ -267,6 +267,9 @@ def _stream_plan(total_f, op, view, axes, cfg):
     except ewise.Ineligible as e:
         _log.debug("stream reduction declined: %s", e)
         return False
+    if ewise.transcendental(prog):
+        _log.debug("stream reduction declined: exp and sin run on K4's streaming map only")
+        return False
     dec = decompose(view.shape, view.strides, view.offset)
     if dec.overlapping or any(dec.flipped) or dec.min_offset != 0:
         return False

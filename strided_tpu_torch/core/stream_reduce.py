@@ -174,6 +174,8 @@ def stream_reduce(a: torch.Tensor, prog: ewise.Program, red: int) -> torch.Tenso
                         f"does not fit a {a.dtype} operand")
     if red not in (RED_SUM, RED_PROD, RED_MIN, RED_MAX):
         raise ValueError(f"stream_reduce: fold {red}")
+    if ewise.transcendental(prog):
+        raise ValueError("stream_reduce: exp and sin run on K4's streaming map only")
     N, M = a.shape
     cprog = ewise.to_c(prog)
     vec, chunks, rows = split(a, cprog.n_instr, cprog.n_reg)

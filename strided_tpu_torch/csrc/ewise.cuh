@@ -22,6 +22,12 @@
 // Arithmetic is IEEE single precision with no contraction (__fadd_rn,
 // __fmul_rn, __fdiv_rn), so a program agrees with eager PyTorch bit for bit;
 // a bf16 result is rounded after every operation, as eager PyTorch does.
+//
+// EW_EXP and EW_SIN (the accurate expf and sinf, which torch's own kernels
+// call) exist only in the select interpreter instantiated with TR = true:
+// K4's streaming map (tile_stream_v). Every other kernel runs an interpreter
+// that has no such op, as before the two were added, and its launcher
+// refuses a program that holds one (ew_transcendental).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,7 +45,7 @@ enum { EW_F32 = 0, EW_BF16 = 1, EW_I32 = 2, EW_BOOL = 3 };
 enum {
   EW_CONST, EW_CAST, EW_ADD, EW_SUB, EW_MUL, EW_DIV, EW_DIVC, EW_POW, EW_POWC,
   EW_MOD, EW_MIN, EW_MAX, EW_LT, EW_LE, EW_GT, EW_GE, EW_EQ, EW_NE, EW_NEG,
-  EW_ABS, EW_WHERE
+  EW_ABS, EW_WHERE, EW_EXP, EW_SIN
 };
 // reductions (executor_cuda.py / stream_reduce.py: RED_SUM ...)
 enum { EW_RED_SUM, EW_RED_PROD, EW_RED_MIN, EW_RED_MAX, EW_RED_ALL, EW_RED_ANY };
@@ -62,6 +68,13 @@ union EwVal {
 };
 
 __host__ __device__ __forceinline__ bool ew_is_float(int t) { return t == EW_F32 || t == EW_BF16; }
+
+// Whether the program holds EW_EXP or EW_SIN (launchers: only TR instances take it).
+__host__ __device__ inline bool ew_transcendental(const EwProgram& p) {
+  for (int k = 0; k < p.n_instr; ++k)
+    if (p.ins[k].op == EW_EXP || p.ins[k].op == EW_SIN) return true;
+  return false;
+}
 
 __device__ __forceinline__ float ew_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -335,7 +348,7 @@ __device__ __forceinline__ void ew_run_v(const EwProgram& p, EwVal (&r)[R][E]) {
 // way. No E-wide operand copies are live, only the R x E file, and an
 // instruction costs one switch on its op; with R = 1 an operand is register
 // 0 or the immediate. The leaves are in r[0 .. n_in); read the output with
-// ew_sel(r, p.out, e).
+// ew_sel(r, p.out, e). TR: EW_EXP and EW_SIN too.
 template <int R, int E>
 __device__ __forceinline__ EwVal ew_sel(const EwVal (&r)[R][E], int k, int e) {
   EwVal v = r[0][e];
@@ -379,7 +392,7 @@ __device__ __forceinline__ void ew_binary_s(int op, EwVal (&r)[R][E], int a, int
 }
 #undef EW_SCASE2
 
-template <int R, int E>
+template <int R, int E, bool TR = false>
 __device__ __forceinline__ void ew_run_s(const EwProgram& p, EwVal (&r)[R][E]) {
 #pragma unroll 1
   for (int k = 0; k < p.n_instr; ++k) {
@@ -449,6 +462,19 @@ __device__ __forceinline__ void ew_run_s(const EwProgram& p, EwVal (&r)[R][E]) {
         break;
       }
       default:
+        if constexpr (TR) {
+          if (I.op == EW_EXP || I.op == EW_SIN) {
+            const bool ex = I.op == EW_EXP;
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              const float x = ew_sel(r, a, imm, e).f;
+              EwVal v;
+              v.f = ew_round(ex ? expf(x) : sinf(x), t);
+              ew_put(r, d, e, v);
+            }
+            break;
+          }
+        }
         if (t == EW_F32) ew_binary_s<R, E, EW_F32>(I.op, r, a, I.b, d, imm);
         else if (t == EW_BF16) ew_binary_s<R, E, EW_BF16>(I.op, r, a, I.b, d, imm);
         else ew_binary_s<R, E, EW_I32>(I.op, r, a, I.b, d, imm);

@@ -497,7 +497,8 @@ enum { SR_IDENTITY = 0, SR_AMORTIZED = 1, SR_SCALAR = 2, SR_VECTOR = 4 };
 // The split (chunks of ``rows`` rows, vec: 8 columns a thread) comes from
 // core/stream_reduce.py, after strided_stream_reduce_shape; vec = NV needs
 // rows of whole 16-byte runs on a 16-byte aligned base, and a program that
-// takes 8 columns a thread. *path is set to what ran: SR_IDENTITY
+// takes 8 columns a thread; a program holding exp or sin is refused (its
+// interpreters are built without them). *path is set to what ran: SR_IDENTITY
 // (reduce_identity), SR_AMORTIZED (reduce_program on the amortized
 // interpreter) or SR_SCALAR (on the scalar one), | SR_VECTOR for vec = NV.
 extern "C" int strided_stream_reduce(const void* in, void* out, void* scratch, void* tickets,
@@ -512,7 +513,7 @@ extern "C" int strided_stream_reduce(const void* in, void* out, void* scratch, v
   if (N < 1 || M < 1 || chunks < 1 || rows < 1 || rows % STEP != 0 ||
       (int64_t)chunks * rows < N || (int64_t)(chunks - 1) * rows >= N ||
       (vec != 1 && vec != NV) || red < EW_RED_SUM || red > EW_RED_MAX ||
-      prog->n_reg < 1 || prog->n_reg > EW_MAX_REG ||
+      prog->n_reg < 1 || prog->n_reg > EW_MAX_REG || ew_transcendental(*prog) ||
       (vec == NV && (vec_ok != NV || M % align != 0 || ((uintptr_t)in & 15))))
     return (int)cudaErrorInvalidValue;
   const int64_t col_blocks = (M + COLS * vec - 1) / (COLS * vec);

@@ -50,6 +50,17 @@
 // slabs for three staged inputs at four blocks an SM; four staging dims
 // (a box of 8^5) do not fit, and stay on tile_t2d_v. The planner
 // (core/executor_cuda.py::_staging) chooses it from the strides alone.
+// A map whose operands are all unit-stride along its one loop dim
+// (core/executor_cuda.py plans a call whose operands share one dense layout
+// as a single dim of n elements) streams (tile_stream_v): each thread owns 8 consecutive
+// elements, loads them 16 bytes at a time (two loads of f32 or int32, one of
+// bf16), runs the program over them and stores them 16 bytes at a time; no
+// address arithmetic but one add. Its interpreter is the select one
+// (ewise.cuh::ew_run_s): past two or three instructions the interpreter, not
+// the bytes, sets the time, and on the README broadcast the select form took
+// 0.31 ms at 8192^2 f32 where the copying one (ew_run_v) took 0.41 and
+// tile_map_v's addressing 0.76 (PERF.md). It alone runs programs holding exp
+// or sin (ewise.cuh: its TR instances).
 // For a reduction a block owns 32 output elements (1 below 32 outputs) and
 // splits the reduced extent over the rest of its 256 threads; where that
 // leaves the SMs idle the extent is also cut into chunks over blocks. Each
@@ -419,6 +430,113 @@ __global__ void __launch_bounds__(TX * R2, R == 2 ? 3 : 2) tile_t2d_v(const __gr
 
 typedef void (*TeKernel)(TeParams);
 
+// Eight elements of memory type t at base[i .. i + 8), a 16-byte aligned
+// run: one 16-byte load of bf16 (widened to f32 by a shift), two of f32 or
+// int32 (moved as 32-bit words, as ew_load_v does).
+__device__ __forceinline__ void load8(const void* base, int64_t i, int t, EwVal* v) {
+  if (t == EW_BF16) {
+    const uint4 q = __ldg((const uint4*)((const __nv_bfloat16*)base + i));
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j].i = (int32_t)(w[j] << 16);
+      v[2 * j + 1].i = (int32_t)(w[j] & 0xffff0000u);
+    }
+  } else {
+    const uint4* q = (const uint4*)((const int32_t*)base + i);
+    const uint4 a = __ldg(q), b = __ldg(q + 1);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e].i = (int32_t)w[e];
+  }
+}
+
+__device__ __forceinline__ void store8(void* base, int64_t i, int t, const EwVal* v) {
+  if (t == EW_BF16) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * j].f)) |
+             ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * j + 1].f)) << 16);
+    *(uint4*)((__nv_bfloat16*)base + i) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    uint4* q = (uint4*)((int32_t*)base + i);
+    q[0] = make_uint4((uint32_t)v[0].i, (uint32_t)v[1].i, (uint32_t)v[2].i, (uint32_t)v[3].i);
+    q[1] = make_uint4((uint32_t)v[4].i, (uint32_t)v[5].i, (uint32_t)v[6].i, (uint32_t)v[7].i);
+  }
+}
+
+// The streaming form (rank 1, every operand unit-stride). A thread's 8
+// elements are whole and 16-byte aligned where ``vec`` (every operand's
+// first element on a 16-byte boundary) and the run ends inside n; the
+// ragged tail, and every run of an operand set that is not aligned, take
+// the same 8 elements with 4- or 2-byte accesses (scalar edges). The
+// program runs on the select interpreter over the R x 8 register file. TR:
+// the program may hold exp and sin.
+template <int R, bool TR>
+__global__ void __launch_bounds__(THREADS) tile_stream_v(const __grid_constant__ TeParams p,
+                                                         const bool vec) {
+  const int64_t n = p.n_out, i0 = ((int64_t)blockIdx.x * THREADS + threadIdx.x) * PER;
+  if (i0 >= n) return;
+  const bool whole = vec && i0 + PER <= n;
+  int64_t idx[PER];
+  bool ok[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    idx[e] = i0 + e;
+    ok[e] = i0 + e < n;
+  }
+  EwVal r[R][PER];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (k >= p.n_in) continue;
+    const TeOperand& o = p.in[k];
+    const void* base = (const char*)o.ptr + o.offset * (o.type == EW_BF16 ? 2 : 4);
+    if (whole) load8(base, i0, o.type, r[k]);
+    else ew_load_v<PER>(base, idx, ok, o.type, r[k]);
+  }
+  ew_run_s<R, PER, TR>(p.body, r);
+  EwVal v[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) v[e] = ew_sel(r, p.body.out, e);
+  void* out = (char*)p.out.ptr + p.out.offset * (p.out.type == EW_BF16 ? 2 : 4);
+  if (whole) store8(out, i0, p.out.type, v);
+  else ew_store_v<PER>(out, idx, ok, p.out.type, v);
+}
+
+// Launch the streaming form: one 8-element run a thread, the register file
+// of the fewest registers that hold the body, the TR instances for a body
+// holding exp or sin.
+int launch_stream(const TeParams* p, cudaStream_t s) {
+  const int64_t blocks = (p->n_out + THREADS * PER - 1) / (THREADS * PER);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bool vec = true;
+  for (int k = -1; k < p->n_in; ++k) {
+    const TeOperand& o = k < 0 ? p->out : p->in[k];
+    const uintptr_t at = (uintptr_t)o.ptr + (uintptr_t)(o.offset * (o.type == EW_BF16 ? 2 : 4));
+    vec = vec && (at & 15) == 0;
+  }
+  const int regs = p->body.n_reg;
+  typedef void (*StreamKernel)(TeParams, bool);
+  StreamKernel k;
+  if (ew_transcendental(p->body))
+    k = regs <= 2 ? tile_stream_v<2, true> : regs == 3 ? tile_stream_v<3, true> : tile_stream_v<4, true>;
+  else
+    k = regs <= 2 ? tile_stream_v<2, false> : regs == 3 ? tile_stream_v<3, false> : tile_stream_v<4, false>;
+  k<<<(unsigned)blocks, THREADS, 0, s>>>(*p, vec);
+  return (int)cudaGetLastError();
+}
+
+// Whether the map streams: rank 1, every operand unit-stride, a body and
+// inputs within EW_CREG registers (compact).
+bool streams(const TeParams* p) {
+  if (p->red >= 0 || p->tdim >= 0 || p->rank != 1 || !p->compact || p->out.stride[0] != 1)
+    return false;
+  for (int k = 0; k < p->n_in; ++k)
+    if (p->in[k].stride[0] != 1) return false;
+  return true;
+}
+
 // The same tiles for the commonest case, a transposed copy (one input, the
 // identity, one type): T is the element type, and nothing but the copy is
 // left in the loop.
@@ -750,12 +868,20 @@ int launch_multi_axis(const TeParams* p, uint32_t umask, int n_staged, cudaStrea
 
 // *path is set to the map kernel launched: 0 tile_copy_t2d, 1 the amortized
 // interpreter (tile_t2d_v, tile_map_v), 2 the scalar one, 3 the multi-axis
-// form (tile_box_v); -1 a reduction.
+// form (tile_box_v), 4 the streaming form (tile_stream_v); -1 a reduction. A
+// program holding exp or sin is refused unless the map streams.
 extern "C" int strided_tile_executor(const TeParams* p, void* stream, int* path) {
   *path = -1;
   if (p->rank < 1 || p->rank > TE_MAX_DIM || p->n_in < 0 || p->n_in > TE_MAX_IN ||
       p->n_out < 1 || p->n_red < 1 || p->body.n_reg < 1 || p->body.n_reg > EW_MAX_REG ||
       (p->compact && (p->red >= 0 || p->body.n_reg > EW_CREG || p->n_in > EW_CREG)))
+    return (int)cudaErrorInvalidValue;
+  if (streams(p)) {
+    const int err = launch_stream(p, (cudaStream_t)stream);
+    if (err == cudaSuccess) *path = 4;
+    return err;
+  }
+  if (ew_transcendental(p->body) || (p->red >= 0 && ew_transcendental(p->init)))
     return (int)cudaErrorInvalidValue;
   if (p->red < 0 && p->tdim >= 0) {
     if (p->tdim >= p->rank - 1 || p->n_par != p->rank) return (int)cudaErrorInvalidValue;

@@ -15,7 +15,8 @@ the elementwise programs that carry ``f`` into the kernels.
   bench checks at small size: a scrambled-layout copy (exact) and the int32
   ``3*old + sum over axis 0`` reduction (exact).
 - Each op of the program table through ``ewise.evaluate`` equals the
-  direct torch op, bit for bit; each ineligible closure is declined.
+  direct torch op, bit for bit (``exp`` and ``sin`` too, an int32 operand
+  promoted to f32 first); each ineligible closure is declined.
 """
 
 import dataclasses
@@ -398,6 +399,11 @@ OPS = {
     "zeros ones": (lambda x, y: torch.zeros_like(x) + torch.ones_like(y), (_F32, _I32)),
     "affine initop": (lambda x, y: 3 * x, (_F32, _BF16, _I32)),
     "where": (lambda x, y: torch.where(x < 0, -x, y), (_F32, _BF16, _I32)),
+    "exp sin": (lambda x, y: torch.exp(x * 0.25) - torch.sin(y), (_F32, _BF16, _I32)),
+    "exp sin methods, int32 promoted": (lambda x, y: x.exp() + y.sin(),
+                                        (_F32, _BF16, _I32)),
+    "the README broadcast": (lambda x, y: x * torch.exp(-2 * x) + torch.sin(x * x),
+                             (_F32, _BF16, _I32)),
 }
 
 
@@ -434,7 +440,7 @@ _CAPTURED = torch.ones(257)
 DECLINED = {
     "captured tensor": (lambda x: x * _CAPTURED, _F32),
     "captured numpy array": (lambda x: x * np.ones(3), _F32),
-    "op outside the table": (lambda x: torch.sin(x), _F32),
+    "op outside the table": (lambda x: torch.tanh(x), _F32),
     "a reduction": (lambda x: x.sum(), _F32),
     "f64": (lambda x: x.double(), _F32),
     "rounding_mode": (lambda x: torch.div(x, 2, rounding_mode="floor"), _F32),
@@ -459,7 +465,7 @@ def test_declined_closure_takes_the_plain_path_and_says_so(caplog):
     a = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 48)).astype(np.float32))
     v = tst.transpose(tst.strided(a))
     with caplog.at_level("DEBUG", logger="strided_tpu_torch.dispatch"):
-        out = tst.smap(lambda x: torch.sin(x), v)
+        out = tst.smap(lambda x: torch.tanh(x), v)
     assert not tec.LAST_PLAN
     assert any("outside the elementwise program's table" in r.message for r in caplog.records)
-    assert torch.equal(tst.materialize(out), torch.sin(a.T))
+    assert torch.equal(tst.materialize(out), torch.tanh(a.T))

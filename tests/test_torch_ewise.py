@@ -52,7 +52,7 @@ def run_compact(cp: ewise.Program, leaves, like):
             v = operand(ins, "a").to(ewise.CODE_TYPE[ins.type])
         elif ins.op in (ewise.DIVC, ewise.POWC):
             v = ewise._TORCH_OF[ins.op](operand(ins, "a"), ins.cv)
-        elif ins.op in (ewise.NEG, ewise.ABS):
+        elif ins.op in (ewise.NEG, ewise.ABS, ewise.EXP, ewise.SIN):
             v = ewise._TORCH_OF[ins.op](operand(ins, "a"))
         elif ins.op == ewise.WHERE:
             v = torch.where(operand(ins, "a"), operand(ins, "b"), operand(ins, "c"))
@@ -279,3 +279,18 @@ def test_to_c_keeps_the_sign_of_a_zero_constant(f):
     packed = [_cf_bits(ewise.to_c(p), len(ewise.compact(p).instrs) - 1) for p in progs]
     assert packed[0] == packed[2] == np.float32(0.0).tobytes()
     assert packed[1] == np.float32(-0.0).tobytes()
+
+
+def test_the_promotion_cache_keeps_scalar_kinds_apart():
+    """The tracer's dtype cache answers as torch does for each operand kind:
+    an int and a float scalar (equal as keys without ``typed``) give int32
+    and f32 on an int32 value; a repeated trace equals the first."""
+    i32 = ewise.trace(lambda x: x * 2, [torch.int32])
+    f32 = ewise.trace(lambda x: x * 2.0, [torch.int32])
+    assert (i32.out_dtype, f32.out_dtype) == (torch.int32, torch.float32)
+    assert ewise.trace(lambda x: x * 2, [torch.int32]) == i32
+    assert ewise._dtype_of(torch.mul, torch.int32, 1) == torch.int32
+    assert ewise._dtype_of(torch.mul, torch.int32, 1.0) == torch.float32
+    assert ewise._dtype_of(torch.lt, torch.int32, 1.5) == torch.bool
+    assert ewise._dtype_of(torch.result_type, torch.int32, 1.5) == torch.float32
+    assert ewise._dtype_of(torch.where, torch.bool, torch.bfloat16, 2.0) == torch.bfloat16

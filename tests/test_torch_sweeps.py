@@ -123,13 +123,14 @@ def test_family_engine_equals_plain_and_jax(name):
 @pytest.mark.parametrize("name,record", [
     ("symmetrize", ("pair-kernel", "", False)), ("axpby_linalg", ("pair-kernel", "", False)),
     ("permutedims_4d", ("", "", True)), ("permute4_fused", ("generic", "", True)),
-    ("sum_transposed", ("", "xla", False)), ("compute_broadcast", ("", "", False)),
+    ("sum_transposed", ("", "xla", False)), ("compute_broadcast", ("", "", True)),
 ])
 def test_route_of_reads_the_dispatch_records(name, record):
     """``route_of`` resets the records before the call and reports them:
-    the pair spellings reach K2's dispatch, the permutes K4's plan, the
-    complete sum and the transcendental map (outside the program table)
-    the plain path."""
+    the pair spellings reach K2's dispatch, the permutes and the
+    transcendental map (an aligned body of several eager passes, ``exp`` and
+    ``sin`` in the program table) K4's plan, the complete sum the plain
+    path."""
     d = CASES[name][0]
     x, *fixed = (torch.from_numpy(t) for t in _inputs(name, d, np.float32, 0))
     engine, _plain = sweeps.FAMILIES[name].spell(x, *fixed)
