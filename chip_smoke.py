@@ -63,7 +63,9 @@ Phases (numbers are cited by the tests, README, PERF.md and ROADMAP.md):
     of f64 on the CPU, ``rollout_final`` equal to ``rollout``'s last state,
     cartpole iLQR within 1e-3 of f64; the captured rollouts and
     ``benchmarks/ilqr_bench.py``'s solve equal to eager bit for bit, costs
-    finite.
+    finite; ``entry.make_ilqr_step`` (4096 quadrotors, N = 50) captured
+    equal to eager bit for bit, then one replay and no capture a period
+    over ten chained periods, states and plans finite.
 14. slice C at BASELINE config 5's size: on a 1-rank NCCL mesh the step and
     consensus against ``ctrl.control`` + ``model.step``, K1 launches, their
     captures equal to eager and K1 in their profiled replays, the sharded
@@ -1682,6 +1684,29 @@ def mpc_stack_phase(dev) -> None:
           f"finite: {finite}")
     if not finite:
         raise RuntimeError("ilqr_bench's solve ended with a non-finite cost")
+
+    # the receding-horizon iLQR step (the benchmark's quadrotor_ilqr cell):
+    # its first captured period equal to the eager one (or this raises), then
+    # one replay and no new capture a period, the plan staying on the card
+    from strided_tpu_torch import capture as cap, entry
+
+    model, ctrl = entry.make_ilqr_controller(50, bench.DT, dev)
+    step = entry.make_ilqr_step(model, ctrl, bench.DT)
+    x = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (4096, 12)),
+                        dtype=torch.float32, device=dev)
+    plan = ctrl.initial_plan((4096,))
+    (x, plan), _, _ = bench.matches_eager(lambda: step(x, plan))
+    captures, replays = cap.CAPTURES, cap.REPLAYS
+    for _ in range(10):
+        x, plan = step(x, plan)
+    counts = (cap.CAPTURES - captures, cap.REPLAYS - replays)
+    finite = bool(torch.isfinite(x).all() and torch.isfinite(plan).all())
+    print(f"[13 mpc stack] iLQR MPC step 4096 x N=50: captured == eager bit for bit; ten "
+          f"chained periods: {counts[0]} captures, {counts[1]} replays, finite: {finite}, "
+          f"plan on {plan.device}")
+    if counts != (0, 10) or not finite or plan.device.type != "cuda":
+        raise RuntimeError("the iLQR MPC step did not run as one replay a period, or left "
+                           "the card, or gave non-finite states")
 
 
 def gates_phase(dev) -> None:

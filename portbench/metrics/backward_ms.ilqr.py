@@ -1,0 +1,14 @@
+"""Device milliseconds a control period in the iLQR iteration's Riccati
+backward sweep: in the profiled tail, the union of the device
+operations between each replay's ``ilqr.backward`` section markers,
+summed, over the periods."""
+
+from portbench import port_spans
+
+PORT = port_spans.switch_on()
+
+
+def read(trace):
+    if PORT is None:
+        return None
+    return port_spans.section_ms(trace, "ilqr.backward", PORT.sections())

@@ -1,5 +1,6 @@
 """Entry points: one closed-loop step of the scenario-batched quadrotor MPC,
-and the multi-GPU dry run.
+one step of receding-horizon iLQR on the same quadrotor, and the multi-GPU
+dry run.
 
 Counterpart of ``__graft_entry__.py``'s ``_make_controller``, ``entry`` and
 ``dryrun_multichip``: the same controller (Q, R, input bounds, ADMM-6 at
@@ -7,6 +8,8 @@ rho=8), the same step (condensed-QP ADMM solve -> first input -> RK4 plant
 step), and the multi-chip surface run by ``n`` processes, one rank each.
 The reference returns the step for its caller to jit; here nothing else
 would compile it, so ``entry`` returns it captured (``capture.py``).
+``make_ilqr_controller`` and ``make_ilqr_step`` have no counterpart there:
+nonlinear MPC by one warm-started iLQR iteration a period (``mpc/ilqr.py``).
 """
 
 from __future__ import annotations
@@ -16,17 +19,23 @@ import torch
 
 from .capture import capture
 from .models import hover_input, hover_state, quadrotor
-from .mpc import make_hover_mpc
+from .mpc import ILQRMPC, QuadCost, make_hover_mpc
 
-__all__ = ["make_controller", "make_step", "entry", "dryrun_multichip"]
+__all__ = ["make_controller", "make_step", "make_ilqr_controller", "make_ilqr_step", "entry",
+           "dryrun_multichip"]
+
+
+def _weights(dtype, device):
+    """The hover controllers' state and input weights ``(Q, R)``."""
+    Q = torch.diag(torch.tensor([10, 10, 10, 1, 1, 1, 5, 5, 5, 1, 1, 1],
+                                dtype=dtype, device=device))
+    return Q, torch.eye(4, dtype=dtype, device=device) * 0.1
 
 
 def make_controller(horizon: int, dt: float, device, dtype=torch.float32):
     """(model, controller) for the 12-state quadrotor at hover."""
     model = quadrotor()
-    Q = torch.diag(torch.tensor([10, 10, 10, 1, 1, 1, 5, 5, 5, 1, 1, 1],
-                                dtype=dtype, device=device))
-    R = torch.eye(4, dtype=dtype, device=device) * 0.1
+    Q, R = _weights(dtype, device)
     ctrl = make_hover_mpc(
         model,
         hover_state(dtype, device),
@@ -53,6 +62,35 @@ def make_step(model, ctrl, dt):
         return model.step(x, u, dt)
 
     return capture(mpc_step)
+
+
+def make_ilqr_controller(horizon: int, dt: float, device, iters: int = 1,
+                         alphas=(1.0, 0.5, 0.25, 0.1), mu: float = 1e-3,
+                         dtype=torch.float32):
+    """(model, controller): receding-horizon iLQR (:class:`mpc.ILQRMPC`)
+    holding the 12-state quadrotor at hover, with ``make_controller``'s Q
+    and R, Qf = Q, the hover thrust as the input reference and no input
+    bounds."""
+    model = quadrotor()
+    Q, R = _weights(dtype, device)
+    cost = QuadCost(Q, R, Q, hover_state(dtype, device),
+                    u_goal=hover_input(dtype=dtype, device=device))
+    ctrl = ILQRMPC(model, cost, horizon, dt, iters, mu, tuple(alphas))
+    return model, ctrl
+
+
+def make_ilqr_step(model, ctrl, dt):
+    """The closed-loop step ``(x, plan) -> (x_next, plan_next)``: the
+    controller's iterations from the shifted plan, the first input, the RK4
+    plant step; captured, one CUDA-graph replay a call on the card. Start
+    from ``ctrl.initial_plan(x.shape[:-1])`` and hand each call the plan the
+    last one returned."""
+
+    def ilqr_step(x, plan):
+        u, plan = ctrl.control(x, plan)
+        return model.step(x, u, dt), plan
+
+    return capture(ilqr_step)
 
 
 def entry(device="cuda"):

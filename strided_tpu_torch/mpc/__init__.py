@@ -1,5 +1,5 @@
 from .rollout import rollout, rollout_final  # noqa: F401
-from .ilqr import QuadCost, ilqr, ilqr_batched, ILQRResult  # noqa: F401
+from .ilqr import QuadCost, ilqr, ilqr_batched, ILQRResult, ILQRMPC  # noqa: F401
 from .qp import (  # noqa: F401
     CondensedQP,
     build_condensed,

@@ -20,21 +20,36 @@ iteration count and static shapes; nothing reads a value back from the card
 CUDA graph (``capture.py``), as the reference's scans run as one program. A
 singular ``Quu`` gives non-finite gains, whose candidates the line search
 rejects.
+
+The three steps are the spans ``ilqr.linearize``, ``ilqr.backward`` and
+``ilqr.forward`` (``utils/profiling.py``); ``SOLVES`` counts host calls of
+the iteration loop (a warm-up's and a capture's; a CUDA-graph replay adds
+none).
+
+:class:`ILQRMPC` is receding-horizon iLQR in the real-time-iteration form
+(Diehl, Bock & Schloeder, SIAM J. Control Optim. 43(5), 2005): each control
+period shifts the previous plan by one stage, runs ``iters`` iterations
+from the current state, and applies the plan's first input. The port has no
+counterpart in the reference package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..capture import capture
 from ..config import matmul_precision_scope
 from ..models.base import Model, linearize
+from ..utils.profiling import annotate, annotated
 from .rollout import rollout
 
-__all__ = ["QuadCost", "ILQRResult", "ilqr", "ilqr_batched"]
+__all__ = ["QuadCost", "ILQRResult", "ilqr", "ilqr_batched", "ILQRMPC"]
+
+SOLVES: int = 0
+ALPHAS = (1.0, 0.5, 0.25, 0.1)
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -44,17 +59,24 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class QuadCost:
-    """Quadratic tracking cost: 0.5(x-xg)'Q(x-xg) + 0.5 u'Ru, terminal Qf.
-    Every method takes ``(*batch, ...)`` tensors and returns ``(*batch,)``."""
+    """Quadratic tracking cost: 0.5(x-xg)'Q(x-xg) + 0.5(u-ug)'R(u-ug),
+    terminal Qf. ``u_goal`` (m,) is the input reference, zero when None (a
+    hover cost on the absolute thrust needs the hover thrust there). Every
+    method takes ``(*batch, ...)`` tensors and returns ``(*batch,)``."""
 
     Q: torch.Tensor
     R: torch.Tensor
     Qf: torch.Tensor
     x_goal: torch.Tensor
+    u_goal: Optional[torch.Tensor] = None
+
+    def du(self, u):
+        """``u`` less the input reference (``u`` itself when there is none)."""
+        return u if self.u_goal is None else u - self.u_goal
 
     def stage(self, x, u):
-        dx = x - self.x_goal
-        return ((0.5 * dx) @ self.Q * dx).sum(-1) + ((0.5 * u) @ self.R * u).sum(-1)
+        dx, du = x - self.x_goal, self.du(u)
+        return ((0.5 * dx) @ self.Q * dx).sum(-1) + ((0.5 * du) @ self.R * du).sum(-1)
 
     def terminal(self, x):
         dx = x - self.x_goal
@@ -62,9 +84,9 @@ class QuadCost:
 
     def total(self, xs, us):
         # xs (*batch, T+1, n), us (*batch, T, m)
-        dx = xs[..., :-1, :] - self.x_goal
+        dx, du = xs[..., :-1, :] - self.x_goal, self.du(us)
         stage = 0.5 * torch.einsum("...ti,ij,...tj->...", dx, self.Q, dx)
-        stage = stage + 0.5 * torch.einsum("...ti,ij,...tj->...", us, self.R, us)
+        stage = stage + 0.5 * torch.einsum("...ti,ij,...tj->...", du, self.R, du)
         return stage + self.terminal(xs[..., -1, :])
 
 
@@ -75,11 +97,12 @@ class ILQRResult(NamedTuple):
     costs: torch.Tensor  # (*batch, iters): the cost after each iteration
 
 
+@annotated("ilqr.backward")
 def _backward(As, Bs, xs, us, cost: QuadCost, mu):
     """Riccati backward sweep -> feedforward ``ks`` (*batch, T, m) and
     feedback ``Ks`` (*batch, T, m, n), with ``mu`` (*batch,) on Quu."""
     lx = (xs[..., :-1, :] - cost.x_goal) @ cost.Q  # (*batch, T, n)
-    lu = us @ cost.R  # (*batch, T, m)
+    lu = cost.du(us) @ cost.R  # (*batch, T, m)
     Vx = (xs[..., -1, :] - cost.x_goal) @ cost.Qf
     Vxx = cost.Qf
     muI = mu[..., None, None] * torch.eye(us.shape[-1], dtype=us.dtype, device=us.device)
@@ -102,6 +125,7 @@ def _backward(As, Bs, xs, us, cost: QuadCost, mu):
     return torch.stack(ks[::-1], dim=-2), torch.stack(Ks[::-1], dim=-3)
 
 
+@annotated("ilqr.forward")
 def _forward(model, x0, xs, us, ks, Ks, alpha, dt, cost: QuadCost):
     """Closed-loop forward pass of the affine policy at every step size:
     ``alpha`` (A, *1s, 1) gives candidates ``(A, *batch, ...)``."""
@@ -116,21 +140,12 @@ def _forward(model, x0, xs, us, ks, Ks, alpha, dt, cost: QuadCost):
     return xs_new, us_new, cost.total(xs_new, us_new)
 
 
-@capture
-@matmul_precision_scope
-def ilqr(
-    model: Model,
-    cost: QuadCost,
-    x0: torch.Tensor,
-    us_init: torch.Tensor,
-    dt: float,
-    iters: int = 20,
-    mu: float = 1e-3,
-    alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1),
-) -> ILQRResult:
-    """Fixed-iteration iLQR from ``x0`` ``(*batch, n)`` with the initial
-    inputs ``us_init`` ``(*batch, T, m)``; every batch element is its own
-    problem, as under the reference's ``jax.vmap``."""
+def _solve(model, cost, x0, us_init, dt, iters, mu, alphas):
+    """``ilqr``'s iterations; returns the result and, for each iteration,
+    whether each batch element took its line-search step (``(*batch,)``
+    bool)."""
+    global SOLVES
+    SOLVES += 1
     batch = x0.shape[:-1]
     xs, us = rollout(model, x0, us_init, dt), us_init
     c = cost.total(xs, us)
@@ -139,8 +154,10 @@ def ilqr(
     alpha = torch.stack([x0.new_full((), a) for a in alphas])
     alpha = alpha.reshape(-1, *(1,) * len(batch), 1)
     trace = c.new_empty((*batch, iters))
+    accepted = []
     for i in range(iters):
-        As, Bs = linearize(model, xs[..., :-1, :], us, dt)
+        with annotate("ilqr.linearize"):
+            As, Bs = linearize(model, xs[..., :-1, :], us, dt)
         ks, Ks = _backward(As, Bs, xs, us, cost, mu_c)
         xs_c, us_c, costs = _forward(model, x0, xs, us, ks, Ks, alpha, dt, cost)
         # diverged candidates cost +inf, so the line search rejects them
@@ -157,10 +174,80 @@ def ilqr(
         mu_c = torch.where(improved, torch.clamp(mu_c * 0.5, min=mu), mu_c * 4.0)
         mu_c = torch.clamp(mu_c, max=1e6)
         trace[..., i] = c
-    return ILQRResult(xs, us, c, trace)
+        accepted.append(improved)
+    return ILQRResult(xs, us, c, trace), accepted
+
+
+@capture
+@matmul_precision_scope
+def ilqr(
+    model: Model,
+    cost: QuadCost,
+    x0: torch.Tensor,
+    us_init: torch.Tensor,
+    dt: float,
+    iters: int = 20,
+    mu: float = 1e-3,
+    alphas: Tuple[float, ...] = ALPHAS,
+) -> ILQRResult:
+    """Fixed-iteration iLQR from ``x0`` ``(*batch, n)`` with the initial
+    inputs ``us_init`` ``(*batch, T, m)``; every batch element is its own
+    problem, as under the reference's ``jax.vmap``."""
+    return _solve(model, cost, x0, us_init, dt, iters, mu, alphas)[0]
 
 
 def ilqr_batched(model, cost, x0s, us_init, dt, **kw) -> ILQRResult:
     """A batch of initial states (the scenario batch): ``ilqr`` itself, which
     treats every leading dimension as a batch (and is captured)."""
     return ilqr(model, cost, x0s, us_init, dt, **kw)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ILQRMPC:
+    """Receding-horizon iLQR over a plan of ``horizon`` stages, warm-started
+    from the previous period's plan, which the caller keeps (on the card,
+    between captured calls) and hands back each period; ``mu`` starts afresh
+    each period, as ``ilqr`` starts it.
+
+    ``accepted`` is a ``()`` int64 tensor on the cost's device to which each
+    call adds the count of batch elements whose line-search step was taken,
+    over its iterations; inside a captured call the graph adds it on the
+    device, so it is read once, after many periods."""
+
+    model: Model
+    cost: QuadCost
+    horizon: int
+    dt: float
+    iters: int = 1
+    mu: float = 1e-3
+    alphas: Tuple[float, ...] = ALPHAS
+    accepted: torch.Tensor = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "accepted",
+                           torch.zeros((), dtype=torch.int64, device=self.cost.Q.device))
+
+    def initial_plan(self, batch: Tuple[int, ...]) -> torch.Tensor:
+        """``(*batch, horizon, m)``: the input reference (zero when the cost
+        has none) at every stage."""
+        u = self.cost.u_goal
+        if u is None:
+            u = torch.zeros_like(self.cost.R[0])
+        return u.expand(*batch, self.horizon, u.shape[-1]).contiguous()
+
+    @staticmethod
+    def shift(plan: torch.Tensor) -> torch.Tensor:
+        """The warm start for the next period: stages 1..N-1 of ``plan``
+        ``(*batch, N, m)``, then its last stage again."""
+        return torch.cat([plan[..., 1:, :], plan[..., -1:, :]], dim=-2)
+
+    @matmul_precision_scope
+    def control(self, x, plan):
+        """``(u, plan_next)`` for states ``x`` ``(*batch, n)`` and the
+        previous period's ``plan`` ``(*batch, N, m)``: ``iters`` iterations
+        from ``shift(plan)``, the new plan's first input, and the new plan
+        (unshifted)."""
+        res, accepted = _solve(self.model, self.cost, x, self.shift(plan), self.dt, self.iters,
+                               self.mu, self.alphas)
+        self.accepted.add_(torch.stack(accepted).sum())
+        return res.us[..., 0, :], res.us

@@ -9,7 +9,8 @@ scope timer.
 
 The port's layer boundaries are spans (``capture.replay``,
 ``capture.signature``, ``capture.launch``, ``capture.record``,
-``capture.miss``, ``qp.solve``, ``model.step``, ``engine.plan``, ``engine.plain``,
+``capture.miss``, ``qp.solve``, ``model.step``, ``ilqr.linearize``,
+``ilqr.backward``, ``ilqr.forward``, ``engine.plan``, ``engine.plain``,
 ``engine.launch``). What a span does depends on two switches:
 
 - A ``torch.profiler`` is running: the span is a ``record_function``
