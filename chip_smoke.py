@@ -13,8 +13,9 @@ Phases (numbers are cited by the tests, README, PERF.md and ROADMAP.md):
 2. build: nvcc for sm_90a; from ptxas's report, K1's main-path instance,
    the 14 K3 program kernels, K4's two ``tile_box_v`` and six
    ``tile_stream_v`` (registers 2-4, with and without exp and sin), every ``rev4_tiles``
-   and ``pair_tiles`` instance and the plant kernel's f32 and f64 instances
-   built without spills; every ``rev4_mma`` instance built.
+   and ``pair_tiles`` instance, the plant kernel's and the plant Jacobian
+   kernel's f32 and f64 instances built without spills; every ``rev4_mma``
+   instance built.
 3. K1 against its plain version, within 2e-4 and no further from the f64
    iterations than twice the plain version plus 1e-6: the main-path QP at
    B = 16384, 64 * #SMs +- 1, 65, 63, 33, 31, 1; random QPs at D = 1, 12,
@@ -91,6 +92,15 @@ Phases (numbers are cited by the tests, README, PERF.md and ROADMAP.md):
     ``quadrotor_rk4.TOLERANCE`` of the eager step (f32 and f64, batches 1 to
     16384, another body, strided operands); the captured step launching it
     at warm-up and capture only, equal to eager, one plant kernel a replay.
+19. the plant Jacobian kernel, in phase 18's process: ``make_controller``'s
+    one-point linearisation never asks it and stays bit for bit; its worst
+    gaps against ``jacfwd`` on ``quadrotor_rk4.stress_inputs`` rows (the
+    trajectory slice ``xs[:, :-1]``, at the main path's 4096 x 50 too, a
+    broadcast input, another body): f64 within 1e-12, f32 every element
+    within ``quadrotor_rk4.TOLERANCE`` of f32 ``jacfwd`` and, on the rows at
+    the clamp, no further from f64 ``jacfwd`` than twice f32 ``jacfwd``; the
+    captured iLQR step (4096 x N = 50) launching it at warm-up and capture
+    only, equal to eager, one Jacobian kernel a replay.
 
 Any failure raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": ...}``.
@@ -158,10 +168,11 @@ def main() -> None:
     reversal_instances(report)
     pair_instances(report)
     box_instances(report)
-    plant_k = [spill for src, _name, _regs, spill in report if src == "quadrotor_rk4"]
-    if len(plant_k) != 2 or any(plant_k):
-        raise RuntimeError(f"ptxas: expected the plant kernel's f32 and f64 instances without "
-                           f"spills, got spill stores {plant_k}")
+    for src in ("quadrotor_rk4", "quadrotor_jac"):
+        plant_k = [spill for source, _kernel, _regs, spill in report if source == src]
+        if len(plant_k) != 2 or any(plant_k):
+            raise RuntimeError(f"ptxas: expected {src}.cu's f32 and f64 instances without "
+                               f"spills, got spill stores {plant_k}")
 
     rho, alpha, iters = 8.0, 1.6, 6
     _model, ctrl = make_controller(horizon=50, dt=0.02, device=dev)
@@ -1094,7 +1105,7 @@ def map_checks(dev, gen, w, n=8192):
 
 
 def ptxas_report(sources=("fused_admm", "stream_reduce", "tile_executor", "exp_sym",
-                         "exp_perm", "quadrotor_rk4")) -> list:
+                         "exp_perm", "quadrotor_rk4", "quadrotor_jac")) -> list:
     """Registers, stack frame and spills of each kernel of ``sources``, from
     the ptxas report (``-Xptxas -v``) the build keeps beside the library.
     Returns ``(source, kernel, registers, spill bytes stored)`` for each."""
@@ -1905,8 +1916,8 @@ def tracing_phase(dev) -> None:
 
 
 def plant_process() -> None:
-    """Phase 18 in a process of its own (``python3 chip_smoke.py
-    --plant-phase``; its profiles need a profiler that still records
+    """Phases 18 and 19 in a process of their own (``python3 chip_smoke.py
+    --plant-phase``; their profiles need a profiler that still records
     kernels), its output printed here; raises when it fails."""
     import os
     import subprocess
@@ -1916,7 +1927,7 @@ def plant_process() -> None:
                           capture_output=True, text=True, timeout=600)
     print(proc.stdout, end="")
     if proc.returncode != 0:
-        raise RuntimeError(f"phase 18 exited {proc.returncode}: {proc.stderr[-3000:]}")
+        raise RuntimeError(f"phases 18-19 exited {proc.returncode}: {proc.stderr[-3000:]}")
 
 
 def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -2035,6 +2046,118 @@ def plant_phase(dev) -> None:
                            f"{plant_ops['eager']} with the eager plant, not 1 and 0")
 
 
+def _jac_gap(got, want) -> float:
+    """Widest ``|got - want| / (|want| + 1)``: equal values and NaN in both
+    count as no gap, a NaN in one alone as an infinite one."""
+    gap = (got.double() - want.double()).abs() / (want.double().abs() + 1)
+    same = (got == want) | (got.isnan() & want.isnan())
+    return gap.masked_fill(same, 0).nan_to_num(float("inf")).max().item()
+
+
+def jacobian_phase(dev) -> None:
+    """Phase 19 (the module docstring): prints its checks; raises on a
+    failed one."""
+    import dataclasses
+
+    from strided_tpu_torch import capture as cap
+    from strided_tpu_torch.entry import make_controller, make_ilqr_controller, make_ilqr_step
+    from strided_tpu_torch.models import hover_input, hover_state, linearize, quadrotor
+    from strided_tpu_torch.models import quadrotor_jac as qj
+    from strided_tpu_torch.models import quadrotor_rk4 as qr
+
+    dt = 0.02
+    declines, launches = dict(qj.DECLINES), qj.LAUNCHES
+    model, _ = make_controller(horizon=50, dt=dt, device=dev)
+    xe, ue = hover_state(device=dev), hover_input(device=dev)
+    A, B = model.linearize(xe, ue, dt)
+    plain = dataclasses.replace(model, fused_step=None, fused_linearize=None)
+    A0, B0 = plain.linearize(xe, ue, dt)
+    untouched = dict(qj.DECLINES) == declines and qj.LAUNCHES == launches
+    same = torch.equal(A, A0) and torch.equal(B, B0)
+    print(f"[19 plant jacobian] make_controller and Model.linearize at hover: the kernel "
+          f"neither launched nor asked {untouched}; A and B equal to the eager plant's bit for "
+          f"bit {same}")
+    if not (untouched and same):
+        raise RuntimeError("the one-point linearisation reached the Jacobian kernel or changed")
+
+    def eager(body, xs, us, h):  # jacfwd refuses a dual of a broadcast tensor on the card
+        return linearize(dataclasses.replace(body, fused_step=None, fused_linearize=None),
+                         xs, us.contiguous(), h)
+
+    other = quadrotor(m=1.7, g=9.7, Jx=0.013, Jy=0.011, Jz=0.023)
+    for what, body, h, shape in (("4096 points", model, dt, (4096,)),
+                                 ("trajectory slice 64 x 50", model, dt, (64, 51)),
+                                 ("main path 4096 x 50", model, dt, (4096, 51)),
+                                 ("u broadcast", model, dt, (4096,)),
+                                 ("m 1.7, dt 0.01", other, 0.01, (4096,))):
+        gaps = {}
+        for dtype in (torch.float64, torch.float32):
+            xs, us, near = qr.stress_inputs(shape, dev, seed=19 + len(what), dtype=dtype)
+            at_clamp = torch.zeros(xs.shape[:-1].numel(), dtype=torch.bool, device=dev)
+            at_clamp[near] = True
+            at_clamp = at_clamp.reshape(xs.shape[:-1])
+            if len(shape) == 2:  # the iteration's xs[:, :-1]; the main path's us is contiguous
+                xs, at_clamp = xs[:, :-1], at_clamp[:, :-1]
+                us = us[:, :-1].contiguous() if shape[0] == 4096 else us[:, 1:]
+            if what == "u broadcast":
+                us = us[3].expand(*xs.shape[:-1], 4)
+            launches = qj.LAUNCHES
+            got = linearize(body, xs, us, h)
+            if qj.LAUNCHES != launches + 1:
+                raise RuntimeError(f"{what}: base.linearize did not launch the kernel once")
+            want64 = eager(body, xs.double(), us.double(), h)
+            gaps[dtype] = [_jac_gap(g, w) for g, w in zip(got, want64)]
+            if dtype == torch.float32:
+                plain32 = eager(body, xs, us, h)
+                gaps["off"] = [int((~qr.within(g, w)).sum()) for g, w in zip(got, plain32)]
+                gaps["clamp"] = [_jac_gap(g[at_clamp], w[at_clamp]) for g, w in zip(got, want64)]
+                gaps["jacfwd"] = [_jac_gap(g[at_clamp], w[at_clamp])
+                                  for g, w in zip(plain32, want64)]
+                gaps["bitwise"] = [((g == w) | (g.isnan() & w.isnan())).double().mean().item()
+                                   for g, w in zip(got, plain32)]
+        print(f"[19 plant jacobian] {what}: (A, B) f64 kernel widest |got - f64 jacfwd| / "
+              f"(|f64| + 1) {gaps[torch.float64][0]:.3e}, {gaps[torch.float64][1]:.3e} (limit "
+              f"1e-12); f32 kernel elements off f32 jacfwd by more than "
+              f"{qr.TOLERANCE[torch.float32]:.0e} (|want| + 1) {gaps['off'][0]}, "
+              f"{gaps['off'][1]} (limit 0), bit for bit {gaps['bitwise'][0]:.6f}, "
+              f"{gaps['bitwise'][1]:.6f} of the elements; on the {int(at_clamp.sum())} rows at "
+              f"the clamp, widest gap to f64 jacfwd: f32 kernel {gaps['clamp'][0]:.3e}, "
+              f"{gaps['clamp'][1]:.3e}, f32 jacfwd {gaps['jacfwd'][0]:.3e}, "
+              f"{gaps['jacfwd'][1]:.3e} (limit twice)")
+        if not max(gaps[torch.float64]) <= 1e-12 or any(gaps["off"]) or not all(
+                k <= 2 * j for k, j in zip(gaps["clamp"], gaps["jacfwd"])):
+            raise RuntimeError(f"{what}: the Jacobian kernel is off jacfwd: {gaps}")
+
+    model, ctrl = make_ilqr_controller(50, dt, dev)
+    step = make_ilqr_step(model, ctrl, dt)
+    x = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3, (4096, 12)),
+                        dtype=torch.float32, device=dev)
+    plan = ctrl.initial_plan((4096,))
+    launches, replays = qj.LAUNCHES, cap.REPLAYS
+    first = step(x, plan)
+    at_capture = qj.LAUNCHES - launches
+    for _ in range(10):
+        step(x, plan)
+    torch.cuda.synchronize()
+    print(f"[19 plant jacobian] captured iLQR step: LAUNCHES +{at_capture} at its first call "
+          f"(warm-up and capture), +{qj.LAUNCHES - launches - at_capture} over "
+          f"{cap.REPLAYS - replays - 1} more replays")
+    if at_capture != 2 or qj.LAUNCHES != launches + 2 or cap.REPLAYS != replays + 11:
+        raise RuntimeError("the captured iLQR step did not launch the Jacobian kernel at "
+                           "warm-up and capture alone")
+    with cap.disable_capture():
+        eager_first = step(x, plan)
+    same = all(torch.equal(a, b) for a, b in zip(first, eager_first))
+    key, _ = cap.signature((x, plan), {})
+    ops = _kernel_names(step.cache.get(key)[0].replay)
+    jac_ops = sum("quadrotor_jac" in n for n in ops)
+    print(f"[19 plant jacobian] captured iLQR step: equal to its eager call bit for bit {same}; "
+          f"{len(ops)} device operations a replay, {jac_ops} of them the Jacobian kernel")
+    if not same or jac_ops != 1:
+        raise RuntimeError("the captured iLQR step is off its eager call or did not run the "
+                           "Jacobian kernel once a replay")
+
+
 if __name__ == "__main__":
     import sys
 
@@ -2044,5 +2167,6 @@ if __name__ == "__main__":
         tracing_phase("cuda")
     elif sys.argv[1:2] == ["--plant-phase"]:
         plant_phase("cuda")
+        jacobian_phase("cuda")
     else:
         main()

@@ -47,41 +47,15 @@
 // computed in double as Python does and, for f32, rounded as PyTorch rounds
 // a Python scalar for an f32 tensor. The body's constants are arguments, so
 // any quadrotor(m=...) runs.
-#include <cuda_runtime.h>
-
 #include <climits>
+
+#include "quadrotor_ops.cuh"
 
 namespace {
 
+using namespace quad;
+
 constexpr int kThreads = 128;
-constexpr int kStates = 12;
-constexpr int kInputs = 4;
-
-// each operation rounded on its own, in the element type
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float fma_(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ float sin_(float a) { return sinf(a); }
-__device__ __forceinline__ float cos_(float a) { return cosf(a); }
-__device__ __forceinline__ float tan_(float a) { return tanf(a); }
-__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double quo(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ double fma_(double a, double b, double c) { return __fma_rn(a, b, c); }
-__device__ __forceinline__ double sin_(double a) { return sin(a); }
-__device__ __forceinline__ double cos_(double a) { return cos(a); }
-__device__ __forceinline__ double tan_(double a) { return tan(a); }
-__device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
-
-// a b - c d as torch.linalg.cross's CUDA kernel computes it (the header)
-template <typename T>
-__device__ __forceinline__ T cross_term(T a, T b, T c, T d) {
-  return fma_(a, b, -mul(c, d));
-}
 
 template <typename T>
 struct Body {
@@ -93,31 +67,15 @@ struct Body {
 template <typename T>
 __device__ __forceinline__ void dynamics(const T (&s)[kStates], const T (&u)[kInputs],
                                          const Body<T>& b, T (&k)[kStates]) {
-  const T phi = s[6], th = s[7], psi = s[8];
-  const T p = s[9], q = s[10], r = s[11];
-  const T cphi = cos_(phi), sphi = sin_(phi);
-  const T cth = cos_(th), sth = sin_(th);
-  const T cpsi = cos_(psi), spsi = sin_(psi);
-
+  const Attitude<T> a = rotation(s + 6, u, b.Jx, b.Jy, b.Jz, k + 6);
   k[0] = s[3];
   k[1] = s[4];
   k[2] = s[5];
-  // body z axis in the world frame (ZYX Euler) times thrust / m, less gravity
+  // body z axis times thrust / m, less gravity
   const T tm = mul(u[0], b.inv_m);
-  k[3] = mul(add(mul(mul(cpsi, sth), cphi), mul(spsi, sphi)), tm);
-  k[4] = mul(sub(mul(mul(spsi, sth), cphi), mul(cpsi, sphi)), tm);
-  k[5] = sub(mul(mul(cth, cphi), tm), b.g);
-  // Euler-angle kinematics
-  const T tth = tan_(th);
-  k[6] = add(add(p, mul(mul(sphi, tth), q)), mul(mul(cphi, tth), r));
-  k[7] = sub(mul(cphi, q), mul(sphi, r));
-  const T c = isnan(cth) ? cth : max_(cth, T(1e-6));
-  k[8] = quo(add(mul(sphi, q), mul(cphi, r)), c);
-  // J w_dot = tau - w x (J w)
-  const T jp = mul(b.Jx, p), jq = mul(b.Jy, q), jr = mul(b.Jz, r);
-  k[9] = quo(sub(u[1], cross_term(q, jr, r, jq)), b.Jx);
-  k[10] = quo(sub(u[2], cross_term(r, jp, p, jr)), b.Jy);
-  k[11] = quo(sub(u[3], cross_term(p, jq, q, jp)), b.Jz);
+  k[3] = mul(a.zb0, tm);
+  k[4] = mul(a.zb1, tm);
+  k[5] = sub(mul(a.zb2, tm), b.g);
 }
 
 // x and u read through (row, column) strides in elements; out contiguous

@@ -2,7 +2,8 @@
 
 Counterpart of ``strided_tpu/models/base.py``. Jacobians use
 ``torch.func.jacfwd`` (forward mode: the state has few dimensions) and the
-batched linearization is ``torch.func.vmap`` over every leading dimension.
+batched linearization is ``torch.func.vmap`` over every leading dimension,
+or the model's ``fused_linearize`` where it has one.
 """
 
 from __future__ import annotations
@@ -35,13 +36,15 @@ class Model:
 
     ``fused_step(x, u, dt)``, where a model has one, is the same RK4 step in
     one kernel; it returns ``None`` for a call it declines, which ``step``
-    then runs eagerly."""
+    then runs eagerly. ``fused_linearize(xs, us, dt)`` is the batched
+    :func:`linearize` in one kernel, declining alike."""
 
     name: str
     state_dim: int
     input_dim: int
     dynamics: Callable  # (x, u) -> xdot
     fused_step: Optional[Callable] = None  # (x, u, dt) -> x_next or None
+    fused_linearize: Optional[Callable] = None  # (xs, us, dt) -> (A, B) or None
 
     @annotated("model.step")
     def step(self, x, u, dt):
@@ -59,8 +62,13 @@ class Model:
 
 
 def linearize(model: Model, xs, us, dt):
-    """Batched linearization: ``vmap`` of :meth:`Model.linearize` over all
-    leading dims of ``xs``/``us``."""
+    """Batched linearization: the model's ``fused_linearize`` where it has
+    one and takes the call, else ``vmap`` of :meth:`Model.linearize` over
+    all leading dims of ``xs``/``us``."""
+    if model.fused_linearize is not None:
+        out = model.fused_linearize(xs, us, dt)
+        if out is not None:
+            return out
     f = lambda x, u: model.linearize(x, u, dt)
     for _ in range(xs.ndim - 1):
         f = vmap(f)

@@ -29,8 +29,8 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
-__all__ = ["rk4", "decline_reason", "operands", "ARGTYPES", "LAUNCHES", "DECLINES",
-           "stress_inputs", "TOLERANCE", "within"]
+__all__ = ["rk4", "decline_reason", "check_operands", "operands", "ARGTYPES", "LAUNCHES",
+           "DECLINES", "stress_inputs", "TOLERANCE", "within"]
 
 LAUNCHES: int = 0
 DECLINES: collections.Counter = collections.Counter()
@@ -76,14 +76,11 @@ def decline_reason(x, u) -> Optional[str]:
     return None
 
 
-def operands(x, u, dt):
-    """``x`` and ``u`` as ``(rows, 12)`` and ``(rows, 4)`` views, as the
-    kernel reads them (through their strides; ``reshape`` copies only a
-    batch it cannot view as evenly spaced rows); ``u`` is broadcast to
-    ``x``'s batch dims, as the eager step broadcasts it. Raises on what the
-    kernel does not compute: a ``dt`` that is not a Python number, dtypes
-    other than one of float32 and float64 for both, last dims other than 12
-    and 4."""
+def check_operands(x, u, dt):
+    """Raises on what the quadrotor's kernels (this one and
+    ``quadrotor_jac``'s) do not compute: a ``dt`` that is not a Python
+    number, dtypes other than one of float32 and float64 for both, last dims
+    other than 12 and 4."""
     if isinstance(dt, bool) or not isinstance(dt, (int, float)):
         raise TypeError(f"quadrotor_rk4: dt must be a Python number, got {type(dt).__name__}")
     if x.dtype not in ARGTYPES or u.dtype != x.dtype:
@@ -92,6 +89,15 @@ def operands(x, u, dt):
     if x.shape[-1:] != (12,) or u.shape[-1:] != (4,):
         raise ValueError(f"quadrotor_rk4: x must be (..., 12) and u (..., 4), got "
                          f"{tuple(x.shape)}, {tuple(u.shape)}")
+
+
+def operands(x, u, dt):
+    """``x`` and ``u`` as ``(rows, 12)`` and ``(rows, 4)`` views, as the
+    kernel reads them (through their strides; ``reshape`` copies only a
+    batch it cannot view as evenly spaced rows); ``u`` is broadcast to
+    ``x``'s batch dims, as the eager step broadcasts it. Raises on what the
+    kernel does not compute (:func:`check_operands`)."""
+    check_operands(x, u, dt)
     return x.reshape(-1, 12), u.expand(*x.shape[:-1], 4).reshape(-1, 4)
 
 

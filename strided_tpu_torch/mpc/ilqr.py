@@ -4,7 +4,10 @@ Counterpart of ``strided_tpu/mpc/ilqr.py`` (BASELINE config 3: cartpole
 iLQR). Each iteration:
 
 1. linearizes the step along the trajectory (``models.base.linearize``:
-   ``jacfwd`` vmapped over the batch and the horizon);
+   the model's ``fused_linearize`` where it has one and it does not
+   decline, i.e. the quadrotor's one-launch kernel ``csrc/quadrotor_jac.cu``
+   on CUDA tensors outside autodiff; else ``jacfwd`` vmapped over the batch
+   and the horizon);
 2. runs the Riccati backward sweep, a Python loop from ``t = T-1`` down to
    0 over (n, n) / (n, m) matmuls;
 3. rolls out the affine policy at every line-search step size at once, the
